@@ -1,0 +1,93 @@
+"""BaseDecodeHead (≙ ``stc_unet_tpu/models/decode_heads/decode_head.py``).
+
+The out_channels/threshold resolution, the input selection and the
+classifier. The losses come with the training slice; ``loss_decode`` is
+accepted and kept so the configs build unchanged.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Any, Optional
+
+import torch.nn as nn
+
+from ..bricks import Conv2d
+
+
+def resolve_out_channels(num_classes: int, out_channels: Optional[int],
+                         threshold: Optional[float]):
+    """The reference's out_channels/threshold resolution."""
+    if out_channels is None:
+        out_channels = num_classes
+    if out_channels != num_classes and out_channels != 1:
+        raise ValueError(
+            'out_channels should equal num_classes, except binary '
+            f'segmentation (out_channels==1, num_classes==2); got '
+            f'out_channels={out_channels}, num_classes={num_classes}')
+    if out_channels == 1 and threshold is None:
+        threshold = 0.3
+        warnings.warn('threshold is not defined for binary, defaults to 0.3')
+    return out_channels, threshold
+
+
+class BaseDecodeHead(nn.Module):
+    """Base decode head; the ctor args are the reference's."""
+
+    def __init__(self, num_classes: int = 2, in_channels: Any = 64,
+                 channels: int = 64, out_channels: Optional[int] = None,
+                 threshold: Optional[float] = None,
+                 dropout_ratio: float = 0.1, conv_cfg: Optional[dict] = None,
+                 norm_cfg: Optional[dict] = None,
+                 act_cfg: Optional[dict] = None, in_index: Any = -1,
+                 input_transform: Optional[str] = None,
+                 loss_decode: Any = None, ignore_index: int = 255,
+                 sampler: Optional[dict] = None, align_corners: bool = False,
+                 init_cfg: Optional[dict] = None):
+        super().__init__()
+        if input_transform is not None:
+            raise NotImplementedError(
+                f'input_transform={input_transform!r} is not ported yet')
+        assert isinstance(in_channels, int), \
+            'in_channels must be an int without input_transform'
+        assert isinstance(in_index, int), \
+            'in_index must be an int without input_transform'
+        self.num_classes = num_classes
+        self.in_channels = in_channels
+        self.channels = channels
+        self.out_channels = out_channels
+        self.threshold = threshold
+        self.dropout_ratio = dropout_ratio
+        self.in_index = in_index
+        self.input_transform = input_transform
+        self.loss_decode = loss_decode
+        self.ignore_index = ignore_index
+        self.align_corners = align_corners
+
+    @property
+    def final_out_channels(self) -> int:
+        out, _ = resolve_out_channels(self.num_classes, self.out_channels,
+                                      self.threshold)
+        return out
+
+    @property
+    def final_threshold(self) -> Optional[float]:
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore')
+            _, thr = resolve_out_channels(self.num_classes, self.out_channels,
+                                          self.threshold)
+        return thr
+
+    def _init_cls_seg(self, in_channels: int):
+        """Dropout2d + 1x1 conv classifier over ``in_channels`` features."""
+        if self.dropout_ratio > 0:
+            self.dropout = nn.Dropout2d(self.dropout_ratio)
+        self.conv_seg = Conv2d(in_channels, self.final_out_channels, 1)
+
+    def _transform_inputs(self, inputs):
+        """Select the feature level ``in_index``."""
+        return inputs[self.in_index]
+
+    def cls_seg(self, feat):
+        if self.dropout_ratio > 0:
+            feat = self.dropout(feat)
+        return self.conv_seg(feat)

@@ -1,0 +1,194 @@
+"""CoordAtt strip pools (K1) and gate add (K2): CUDA kernels for Hopper.
+
+Counterpart of ``stc_unet_tpu/ops/coordatt_fused.py``. The kernels are in
+``csrc/coordatt_fused.cu`` and replace the Pallas kernels there:
+
+- ``strip_pools`` (K1) ← ``_pools_call``/``_pools_kernel``: x (N,H,W,C) →
+  (sum over W (N,H,C), sum over H (N,W,C)), both f32, in one read of x.
+- ``gate_add`` (K2) ← ``_gate_add_call``/``_gate_add_kernel``:
+  ``a_h[:, :, None, :] * a_w[:, None, :, :] + x`` in one read and one write
+  of x.
+
+Both are bound by memory bytes on the card: the least time is the bytes
+they must move over the 3.35 TB/s of an H100 SXM (K1: x once plus the two
+small outputs; K2: x and out, plus a_h and a_w). The source says what each
+design does about that bound.
+
+On a CUDA tensor each wrapper checks its inputs, launches its kernel and
+adds one to its ``launches`` count; it raises on anything the kernel does
+not take. On a CPU tensor it computes the plain PyTorch version
+(``strip_pools_reference``/``gate_add_reference``) and counts nothing.
+
+Unlike the JAX package, which keeps its Pallas kernels off in the model
+(their TPU layout boundary costs more than they save), the port's CoordAtt
+always goes through these wrappers: on the card they are the eval path.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._build import load_library
+
+__all__ = ['strip_pools', 'gate_add', 'strip_pools_reference',
+           'gate_add_reference']
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_POOL_BAND_ROWS = 64   # rows of x per block of K1's first pass (kPoolBand)
+_TRAINING = ('the backward of gate_add (K2b) is ported with the training '
+             'slice (ROADMAP.md, Slice B)')
+_lib = None
+
+
+def _kernels():
+    global _lib
+    if _lib is None:
+        lib = load_library('coordatt_fused')
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.stc_strip_pools.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.stc_strip_pools.restype = i
+        lib.stc_gate_add.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.stc_gate_add.restype = i
+        _lib = lib
+    return _lib
+
+
+def _check(name, t, shape, dtype, device):
+    if t.device != device:
+        raise ValueError(f'{name} is on {t.device}, expected {device}')
+    if t.dtype != dtype:
+        raise TypeError(f'{name} has dtype {t.dtype}, expected {dtype}')
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
+                         f'{tuple(shape)}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name} must be contiguous (NHWC)')
+
+
+def _check_x(x):
+    if x.ndim != 4:
+        raise ValueError(f'x must be (N, H, W, C), got {tuple(x.shape)}')
+    if x.dtype not in _DTYPES:
+        raise TypeError(f'x must be float32 or bfloat16, got {x.dtype}')
+    _check('x', x, x.shape, x.dtype, x.device)
+    n, h, w, c = x.shape
+    if n > 65535 or min(n, h, w, c) < 1:
+        raise ValueError(f'unsupported shape {tuple(x.shape)}')
+
+
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f'{what}: CUDA error {err} at launch')
+
+
+def _stream(x):
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# K1: strip_pools
+# ---------------------------------------------------------------------------
+
+def strip_pools_reference(x):
+    """Plain PyTorch K1: ``(sum_w (N,H,C), sum_h (N,W,C))`` in f32."""
+    xf = x.float()
+    return xf.sum(2), xf.sum(1)
+
+
+def _strip_pools_kernel(x):
+    _check_x(x)
+    lib = _kernels()
+    n, h, w, c = x.shape
+    sum_w = torch.empty((n, h, c), dtype=torch.float32, device=x.device)
+    sum_h = torch.empty((n, w, c), dtype=torch.float32, device=x.device)
+    bands = -(-h // _POOL_BAND_ROWS)
+    scratch = (torch.empty((n, bands, w, c), dtype=torch.float32,
+                           device=x.device) if bands > 1 else sum_h)
+    with torch.cuda.device(x.device):
+        err = lib.stc_strip_pools(x.data_ptr(), sum_w.data_ptr(),
+                                  sum_h.data_ptr(), scratch.data_ptr(),
+                                  _DTYPES[x.dtype], bands, n, h, w, c,
+                                  _stream(x))
+    _raise_on(err, 'strip_pools')
+    strip_pools.launches += 1
+    return sum_w, sum_h
+
+
+class _StripPools(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.x_dtype = x.dtype
+        return _strip_pools_kernel(x)
+
+    @staticmethod
+    def backward(ctx, g_w, g_h):
+        # the JAX VJP (_strip_pools_bwd) is a plain broadcast add too
+        dx = g_w[:, :, None, :] + g_h[:, None, :, :]
+        return dx.to(ctx.x_dtype)
+
+
+def strip_pools(x):
+    """Both CoordAtt strip sums of x (N,H,W,C) in one read of x.
+
+    Returns ``(sum over W -> (N,H,C), sum over H -> (N,W,C))``, both f32.
+    """
+    if x.device.type == 'cpu':
+        return strip_pools_reference(x)
+    if x.device.type != 'cuda':
+        raise ValueError(f'strip_pools: no kernel for device {x.device}')
+    return _StripPools.apply(x)
+
+
+strip_pools.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: gate_add
+# ---------------------------------------------------------------------------
+
+def gate_add_reference(x, a_h, a_w):
+    """Plain PyTorch K2: ``a_h[:, :, None, :] * a_w[:, None, :, :] + x``."""
+    return a_h[:, :, None, :] * a_w[:, None, :, :] + x
+
+
+def _gate_add_kernel(x, a_h, a_w):
+    _check_x(x)
+    n, h, w, c = x.shape
+    _check('a_h', a_h, (n, h, c), x.dtype, x.device)
+    _check('a_w', a_w, (n, w, c), x.dtype, x.device)
+    lib = _kernels()
+    out = torch.empty_like(x)
+    per_vec = 16 // x.element_size()
+    vec = int(c % per_vec == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x, a_h, a_w, out)))
+    with torch.cuda.device(x.device):
+        err = lib.stc_gate_add(x.data_ptr(), a_h.data_ptr(), a_w.data_ptr(),
+                               out.data_ptr(), _DTYPES[x.dtype], vec, n, h,
+                               w, c, _stream(x))
+    _raise_on(err, 'gate_add')
+    gate_add.launches += 1
+    return out
+
+
+class _GateAdd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, a_h, a_w):
+        return _gate_add_kernel(x, a_h, a_w)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        raise NotImplementedError(_TRAINING)
+
+
+def gate_add(x, a_h, a_w):
+    """``a_h[:, :, None, :] * a_w[:, None, :, :] + x`` in one read and one
+    write of x (N,H,W,C); a_h (N,H,C) and a_w (N,W,C) in x's dtype."""
+    if x.device.type == 'cpu':
+        return gate_add_reference(x, a_h, a_w)
+    if x.device.type != 'cuda':
+        raise ValueError(f'gate_add: no kernel for device {x.device}')
+    return _GateAdd.apply(x, a_h, a_w)
+
+
+gate_add.launches = 0
