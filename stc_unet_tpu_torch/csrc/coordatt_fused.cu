@@ -1,28 +1,40 @@
-// CoordAtt strip-pool and gate-add kernels for Hopper (sm_90a).
+// CoordAtt strip-pool, gate-add and gate-dots kernels for Hopper (sm_90a).
 //
 // They replace the Pallas kernels of stc_unet_tpu/ops/coordatt_fused.py:
 //   K1  stc_strip_pools  <- _pools_call / _pools_kernel (public strip_pools)
 //   K2  stc_gate_add     <- _gate_add_call / _gate_add_kernel (public gate_add)
+//   K2b stc_gate_dots    <- _gate_dots_call / _gate_dots_kernel (the backward
+//                           of gate_add)
 //
-// x is (N, H, W, C) and contiguous: the NHWC view of a channels_last NCHW
-// tensor. Types: float32 (dtype 0) and bfloat16 (dtype 1).
+// x (or do) is (N, H, W, C) and contiguous: the NHWC view of a channels_last
+// NCHW tensor. Types: float32 (dtype 0) and bfloat16 (dtype 1).
 //
-// Both kernels are bound by device-memory bytes, not by operations: K1 does
+// All three are bound by device-memory bytes, not by operations: K1 does
 // two adds per element read (0.5 flop/byte in f32), K2 one multiply and one
-// add per element read and written. The least time is the bytes moved over
-// the 3.35 TB/s of an H100 SXM. What each design does about that bound:
+// add per element read and written, K2b two multiply-adds per element of do
+// read. The least time is the bytes moved over the 3.35 TB/s of an H100 SXM.
+// What each design does about that bound:
 //
 // K1 reads x exactly once. The TPU kernel carried the sum over H across a
 // sequential grid axis; Hopper's blocks run in no order, so one block takes
 // (n, 32 channels, a band of 64 rows). Threads run along C, so a warp reads
 // 32 neighbouring channels of one pixel (coalesced). Each thread owns 8
 // rows of the band and sums them over all of W in registers, so the sum
-// over W of every row is written once, complete. The band's column sums go
-// through shared memory into an f32 scratch (N, bands, W, C) -- 1/64 of x's
-// elements -- and a second small pass adds the bands in order. With one
-// band (H <= 64) the first pass writes the sum over H directly. No float
-// atomics: every sum is taken in a fixed order, so the output is the same
-// bit for bit from run to run.
+// over W of every row is written once, complete. The sum over W is taken in
+// chunks of 32 columns: each chunk is summed into a fresh partial that is
+// then added to the row's total, so no sum adds more than 32 + W/32 terms
+// one after another. The band's column sums go through shared memory into
+// an f32 scratch (N, bands, W, C) -- 1/64 of x's elements -- and a second
+// small pass adds the bands in order. With one band (H <= 64) the first
+// pass writes the sum over H directly. No float atomics: every sum is taken
+// in a fixed order, so the output is the same bit for bit from run to run.
+//
+// K2b is K1's design with the products in it: dh[n,h,c] = sum_w do*a_w is
+// K1's row sum with each term scaled by a_w[n,w,c], and dw[n,w,c] =
+// sum_h do*a_h its column sum with each term scaled by a_h[n,h,c]. A thread
+// keeps a_h of its 8 rows in registers and reads a_w[n,w,c] once for its 8
+// rows. do is read once; a_h and a_w are small and stay in L2. The products
+// and sums are in f32, as the TPU kernel takes them, whatever do's type.
 //
 // K2 is one read of x and one write of out, with 16-byte vector loads and
 // stores along C (4 floats or 8 bfloat16) and a scalar path when C or an
@@ -60,11 +72,15 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Pass 1 of K1. Grid (ceil(C / 32), bands, N), block (32, 8).
-template <typename T>
+// Pass 1 of K1 (kDots false) and of K2b (kDots true). Grid (ceil(C / 32),
+// bands, N), block (32, 8). K1: row_out = sum over W of x, col_out = the
+// band's sum over H of x. K2b: x is do, row_out = sum over W of do * a_w,
+// col_out = the band's sum over H of do * a_h.
+template <typename T, bool kDots>
 __global__ void __launch_bounds__(kPoolLanes * kPoolTy)
-strip_pools_band(const T* __restrict__ x, float* __restrict__ sum_w,
-                 float* __restrict__ col_out, int H, int W, int C) {
+strip_band(const T* __restrict__ x, const T* __restrict__ a_h,
+           const T* __restrict__ a_w, float* __restrict__ row_out,
+           float* __restrict__ col_out, int H, int W, int C) {
   __shared__ float part[kPoolTy][kPoolChunk][kPoolLanes];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int c0 = blockIdx.x * kPoolLanes;
@@ -76,26 +92,44 @@ strip_pools_band(const T* __restrict__ x, float* __restrict__ sum_w,
   const int64_t row = (int64_t)W * C;
   const T* xn = x + n * H * row + c;
 
+  float ah[kPoolRpt];
   float row_acc[kPoolRpt];
 #pragma unroll
-  for (int k = 0; k < kPoolRpt; ++k) row_acc[k] = 0.f;
+  for (int k = 0; k < kPoolRpt; ++k) {
+    const int h = h0 + ty + k * kPoolTy;
+    ah[k] = (kDots && c_ok && h < H) ? to_f32(a_h[(n * H + h) * C + c])
+                                     : 0.f;
+    row_acc[k] = 0.f;
+  }
 
   for (int w0 = 0; w0 < W; w0 += kPoolChunk) {
     const int wn = min(kPoolChunk, W - w0);
+    float chunk[kPoolRpt];
+#pragma unroll
+    for (int k = 0; k < kPoolRpt; ++k) chunk[k] = 0.f;
     for (int j = 0; j < wn; ++j) {
       const T* xw = xn + (int64_t)(w0 + j) * C;
+      const float aw =
+          (kDots && c_ok) ? to_f32(a_w[(n * W + w0 + j) * C + c]) : 1.f;
       float p = 0.f;
 #pragma unroll
       for (int k = 0; k < kPoolRpt; ++k) {
         const int h = h0 + ty + k * kPoolTy;
         if (c_ok && h < H) {
           const float v = to_f32(xw[h * row]);
-          row_acc[k] += v;
-          p += v;
+          if (kDots) {
+            chunk[k] += v * aw;
+            p += v * ah[k];
+          } else {
+            chunk[k] += v;
+            p += v;
+          }
         }
       }
       part[ty][j][tx] = p;
     }
+#pragma unroll
+    for (int k = 0; k < kPoolRpt; ++k) row_acc[k] += chunk[k];
     __syncthreads();
     // column sums of the band: wn columns x 32 channels, each over 8 rows
     for (int i = ty * kPoolLanes + tx; i < wn * kPoolLanes;
@@ -113,14 +147,14 @@ strip_pools_band(const T* __restrict__ x, float* __restrict__ sum_w,
 #pragma unroll
   for (int k = 0; k < kPoolRpt; ++k) {
     const int h = h0 + ty + k * kPoolTy;
-    if (c_ok && h < H) sum_w[(n * H + h) * C + c] = row_acc[k];
+    if (c_ok && h < H) row_out[(n * H + h) * C + c] = row_acc[k];
   }
 }
 
-// Pass 2 of K1: sum_h[n, w, c] = sum over bands, in band order.
-__global__ void strip_pools_bands(const float* __restrict__ part,
-                                  float* __restrict__ sum_h, int64_t wc,
-                                  int bands, int64_t total) {
+// Pass 2 of K1 and K2b: out[n, w, c] = sum over bands, in band order.
+__global__ void strip_bands(const float* __restrict__ part,
+                            float* __restrict__ sum_h, int64_t wc, int bands,
+                            int64_t total) {
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
        i += (int64_t)gridDim.x * blockDim.x) {
     const int64_t n = i / wc;
@@ -167,22 +201,25 @@ gate_add_rows(const T* __restrict__ x, const T* __restrict__ a_h,
   }
 }
 
-template <typename T>
-void launch_strip_pools(const void* x, void* sum_w, void* sum_h,
-                        void* scratch, int bands, int N, int H, int W, int C,
-                        cudaStream_t s) {
-  float* col = bands == 1 ? static_cast<float*>(sum_h)
+// Both passes of K1 (kDots false) or K2b (kDots true).
+template <typename T, bool kDots>
+void launch_strip(const void* x, const void* a_h, const void* a_w,
+                  void* row_out, void* col_out, void* scratch, int bands,
+                  int N, int H, int W, int C, cudaStream_t s) {
+  float* col = bands == 1 ? static_cast<float*>(col_out)
                           : static_cast<float*>(scratch);
   const dim3 grid((C + kPoolLanes - 1) / kPoolLanes, bands, N);
   const dim3 block(kPoolLanes, kPoolTy);
-  strip_pools_band<T><<<grid, block, 0, s>>>(
-      static_cast<const T*>(x), static_cast<float*>(sum_w), col, H, W, C);
+  strip_band<T, kDots><<<grid, block, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(a_h),
+      static_cast<const T*>(a_w), static_cast<float*>(row_out), col, H, W,
+      C);
   if (bands > 1) {
     const int64_t wc = (int64_t)W * C, total = (int64_t)N * wc;
     const int64_t want = (total + 255) / 256;
     const int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
-    strip_pools_bands<<<blocks, 256, 0, s>>>(
-        col, static_cast<float*>(sum_h), wc, bands, total);
+    strip_bands<<<blocks, 256, 0, s>>>(
+        col, static_cast<float*>(col_out), wc, bands, total);
   }
 }
 
@@ -208,11 +245,29 @@ int stc_strip_pools(const void* x, void* sum_w, void* sum_h, void* scratch,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch_strip_pools<float>(x, sum_w, sum_h, scratch, bands, N, H, W, C,
-                              s);
+    launch_strip<float, false>(x, nullptr, nullptr, sum_w, sum_h, scratch,
+                               bands, N, H, W, C, s);
   else
-    launch_strip_pools<__nv_bfloat16>(x, sum_w, sum_h, scratch, bands, N, H,
-                                      W, C, s);
+    launch_strip<__nv_bfloat16, false>(x, nullptr, nullptr, sum_w, sum_h,
+                                       scratch, bands, N, H, W, C, s);
+  return (int)cudaGetLastError();
+}
+
+// K2b: dh (N, H, C) and dw (N, W, C), both f32, from do (N, H, W, C) and
+// a_h (N, H, C), a_w (N, W, C) in do's type. bands and scratch as for
+// stc_strip_pools.
+int stc_gate_dots(const void* d_out, const void* a_h, const void* a_w,
+                  void* dh, void* dw, void* scratch, int dtype, int bands,
+                  int N, int H, int W, int C, void* stream) {
+  if (bands != (H + kPoolBand - 1) / kPoolBand)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    launch_strip<float, true>(d_out, a_h, a_w, dh, dw, scratch, bands, N, H,
+                              W, C, s);
+  else
+    launch_strip<__nv_bfloat16, true>(d_out, a_h, a_w, dh, dw, scratch,
+                                      bands, N, H, W, C, s);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,9 @@ reference fork, so ``state_dict`` keys are its keys
 Dtype flow, as in the JAX package: in eval the MHA keeps its in_proj f32,
 and JAX promotes ``bf16 @ f32`` to f32, so with a bf16 image x4, x5 (and
 the decoder after them) run in f32. torch does not promote mixed dtypes in
-``matmul``/``linear``, so the MHA casts explicitly.
+``matmul``/``linear``, so the MHA casts explicitly. In training the in_proj
+is cast to the activations' dtype (JAX ``unet_backbone.py:130-132``), so
+with a bf16 image x4, x5 and the decoder stay bf16.
 """
 from __future__ import annotations
 
@@ -108,8 +110,10 @@ class MultiheadAttention(nn.Module):
         c, h = self.embed_dim, self.num_heads
         hd = c // h
         w, b = self.in_proj_weight, self.in_proj_bias
-        # eval keeps the in_proj f32; JAX promotes bf16 @ f32 to f32
-        dt = torch.promote_types(q.dtype, w.dtype)
+        # training computes in q's dtype; eval keeps the in_proj f32, and
+        # JAX promotes bf16 @ f32 to f32
+        dt = q.dtype if self.training else torch.promote_types(q.dtype,
+                                                               w.dtype)
         w, b = w.to(dt), b.to(dt)
         q = torch.matmul(q.to(dt), w[:c].t()) + b[:c]
         k = torch.matmul(k.to(dt), w[c:2 * c].t()) + b[c:2 * c]

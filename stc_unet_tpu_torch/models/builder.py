@@ -1,8 +1,9 @@
 """Model registries and build functions
 (≙ ``stc_unet_tpu/models/builder.py``).
 
-Registered classes are ``nn.Module``s; ``build_*`` instantiates from an
-mmcv-style cfg dict keyed on ``type``.
+Registered classes are ``nn.Module``s, or plain loss callables in
+``LOSSES``; ``build_*`` instantiates from an mmcv-style cfg dict keyed on
+``type``.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from stc_unet_tpu_torch.utils import Registry
 
 BACKBONES = Registry('backbone')
 HEADS = Registry('head')
+LOSSES = Registry('loss')
 SEGMENTORS = Registry('segmentor')
 
 
@@ -19,6 +21,10 @@ def build_backbone(cfg):
 
 def build_head(cfg, default_args=None):
     return HEADS.build(cfg, default_args=default_args)
+
+
+def build_loss(cfg):
+    return LOSSES.build(cfg)
 
 
 def build_segmentor(cfg, train_cfg=None, test_cfg=None):

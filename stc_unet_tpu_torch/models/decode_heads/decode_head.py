@@ -1,8 +1,9 @@
 """BaseDecodeHead (≙ ``stc_unet_tpu/models/decode_heads/decode_head.py``).
 
-The out_channels/threshold resolution, the input selection and the
-classifier. The losses come with the training slice; ``loss_decode`` is
-accepted and kept so the configs build unchanged.
+The out_channels/threshold resolution, the input selection, the
+classifier (``Dropout2d`` in training + a 1x1 conv) and the losses
+(``loss_by_feat``). Heads take and return NCHW tensors; ``loss_by_feat``
+takes NHWC logits, as the JAX function does.
 """
 from __future__ import annotations
 
@@ -11,7 +12,14 @@ from typing import Any, Optional
 
 import torch.nn as nn
 
-from ..bricks import Conv2d
+from stc_unet_tpu_torch.ops import resize
+from ..bricks import Conv2d, Dropout2d
+from ..builder import build_loss
+from ..losses import accuracy
+
+
+def _default_loss():
+    return dict(type='CrossEntropyLoss', use_sigmoid=False, loss_weight=1.0)
 
 
 def resolve_out_channels(num_classes: int, out_channels: Optional[int],
@@ -59,8 +67,10 @@ class BaseDecodeHead(nn.Module):
         self.dropout_ratio = dropout_ratio
         self.in_index = in_index
         self.input_transform = input_transform
-        self.loss_decode = loss_decode
+        self.loss_decode = (_default_loss() if loss_decode is None
+                            else loss_decode)
         self.ignore_index = ignore_index
+        self.sampler = sampler
         self.align_corners = align_corners
 
     @property
@@ -80,14 +90,48 @@ class BaseDecodeHead(nn.Module):
     def _init_cls_seg(self, in_channels: int):
         """Dropout2d + 1x1 conv classifier over ``in_channels`` features."""
         if self.dropout_ratio > 0:
-            self.dropout = nn.Dropout2d(self.dropout_ratio)
+            self.dropout = Dropout2d(self.dropout_ratio)
         self.conv_seg = Conv2d(in_channels, self.final_out_channels, 1)
 
     def _transform_inputs(self, inputs):
         """Select the feature level ``in_index``."""
         return inputs[self.in_index]
 
-    def cls_seg(self, feat):
+    def cls_seg(self, feat, generator=None):
+        """Dropout2d (training only; its mask from ``generator``) and the
+        classifier."""
         if self.dropout_ratio > 0:
-            feat = self.dropout(feat)
+            feat = self.dropout(feat, generator)
         return self.conv_seg(feat)
+
+    # -- losses --------------------------------------------------------------
+    def build_losses(self):
+        cfg = self.loss_decode
+        if isinstance(cfg, dict):
+            return [build_loss(dict(cfg))]
+        return [build_loss(dict(c)) for c in cfg]
+
+    def loss_by_feat(self, seg_logit, seg_label, seg_weight=None) -> dict:
+        """The loss dict from head logits (N, h, w, C) and labels (N, H, W)
+        (JAX ``decode_head.py:156-182``): the logits are cast to f32 and
+        resized to the label size, entries that share a ``loss_name`` are
+        summed, and ``acc_seg`` is added."""
+        if self.sampler is not None:
+            raise NotImplementedError(
+                'pixel samplers (OHEM) are not ported yet (ROADMAP.md, '
+                'Slice E)')
+        seg_logit = resize(seg_logit.float(), size=seg_label.shape[1:3],
+                           mode='bilinear', align_corners=self.align_corners,
+                           warning=False)
+        loss = {}
+        for loss_decode in self.build_losses():
+            value = loss_decode(seg_logit, seg_label, weight=seg_weight,
+                                ignore_index=self.ignore_index)
+            if loss_decode.loss_name not in loss:
+                loss[loss_decode.loss_name] = value
+            else:
+                loss[loss_decode.loss_name] = \
+                    loss[loss_decode.loss_name] + value
+        loss['acc_seg'] = accuracy(seg_logit, seg_label,
+                                   ignore_index=self.ignore_index)
+        return loss

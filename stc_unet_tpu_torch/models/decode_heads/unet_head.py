@@ -22,15 +22,21 @@ from .decode_head import BaseDecodeHead
 
 
 class CoordAtt(nn.Module):
-    """Coordinate attention gate added to x, eval, on an NCHW
-    (channels_last) x: ``a_h * a_w + x`` (the fork adds the gate, it does
-    not multiply).
+    """Coordinate attention gate added to x, on an NCHW (channels_last) x:
+    ``a_h * a_w + x`` (the fork adds the gate, it does not multiply).
 
     H- and W-strip means → shared 1x1 conv bottleneck (BN + h_swish) →
     per-axis 1x1 conv + sigmoid → the outer-product gate. This is the JAX
     module's fused ``residual=True`` branch, the only one the model uses:
     ``strip_pools`` (K1) and ``gate_add`` (K2) are the CUDA kernels on the
-    card and their plain versions on the CPU.
+    card and their plain versions on the CPU, and ``gate_add``'s backward
+    is ``gate_dots`` (K2b).
+
+    The JAX model takes the fused path only when ``not train``
+    (``unet_head.py:62``) and its plain chain in training. The port keeps
+    K1, K2 and K2b in training on the card, with no switch: the functions
+    are the same (``tests/test_torch_train_step.py`` holds the train step
+    to JAX's).
     """
 
     def __init__(self, inp, oup, reduction=4):
@@ -101,9 +107,9 @@ class UnetHead(BaseDecodeHead):
         self.up4 = Up(fc[0] + outs[2], outs[3], se=se)
         self._init_cls_seg(outs[3])
 
-    def forward(self, inputs):
+    def forward(self, inputs, generator=None):
         out = self.up1(inputs[4], inputs[3])
         out = self.up2(out, inputs[2])
         out = self.up3(out, inputs[1])
         out = self.up4(out, inputs[0])
-        return self.cls_seg(out)
+        return self.cls_seg(out, generator)

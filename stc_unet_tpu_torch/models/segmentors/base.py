@@ -1,12 +1,15 @@
-"""BaseSegmentor (≙ ``stc_unet_tpu/models/segmentors/base.py``): the test
-protocol of the reference API, ``forward(return_loss=...)`` and the
-``simple_test``/``aug_test`` dispatch, on an ``nn.Module``."""
+"""BaseSegmentor (≙ ``stc_unet_tpu/models/segmentors/base.py``): the
+protocol of the reference API on an ``nn.Module``:
+``forward(return_loss=...)``, the ``simple_test``/``aug_test`` dispatch,
+and ``train_step``/``val_step`` with ``_parse_losses``."""
 from __future__ import annotations
 
 from abc import ABCMeta, abstractmethod
 from typing import Optional
 
 import torch.nn as nn
+
+from ..losses.utils import total_loss_from_dict
 
 
 class BaseSegmentor(nn.Module, metaclass=ABCMeta):
@@ -66,3 +69,24 @@ class BaseSegmentor(nn.Module, metaclass=ABCMeta):
         if return_loss:
             return self.forward_train(img, img_metas, **kwargs)
         return self.forward_test(img, img_metas, **kwargs)
+
+    # -- train/val steps -----------------------------------------------------
+    def train_step(self, data_batch, optimizer=None, **kwargs):
+        """Losses and logs of one batch (reference API). The update is taken
+        by ``engine.make_train_step``, not here."""
+        losses = self(**data_batch)
+        loss, log_vars = self._parse_losses(losses)
+        return dict(loss=loss, log_vars=log_vars,
+                    num_samples=len(data_batch['img_metas']))
+
+    def val_step(self, data_batch, optimizer=None, **kwargs):
+        return self.train_step(data_batch, optimizer, **kwargs)
+
+    @staticmethod
+    def _parse_losses(losses: dict):
+        """Sum every ``*loss*`` entry into the total; the log vars as
+        floats. The JAX package's cross-host check of the loss keys has
+        nothing to check in one process; it comes with DDP (ROADMAP.md,
+        Slice C item 14)."""
+        loss, log_vars = total_loss_from_dict(losses)
+        return loss, {k: float(v.detach()) for k, v in log_vars.items()}

@@ -11,6 +11,11 @@ Slide inference is the JAX package's: all tiles are gathered with static
 offsets into one batch, run through the net at once, scatter-added back
 in tile order, and multiplied by the precomputed ``1 / count`` of the
 overlaps.
+
+Training is ``forward_train``/``compute_losses`` in the module's current
+mode: call ``.train()`` first, as ``EncoderDecoder.__init__`` and
+``init_segmentor`` leave the model in eval. ``engine.make_train_step``
+does that, and takes the optimizer step.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from stc_unet_tpu_torch.core.utils import add_prefix
 from stc_unet_tpu_torch.ops import resize
 from .. import builder
 from ..backbones.unet_backbone import MultiheadAttention
@@ -28,13 +34,10 @@ from ..bricks import BatchNorm
 from ..builder import SEGMENTORS
 from .base import BaseSegmentor
 
-_TRAINING = ('training is not ported yet: forward_train belongs to the '
-             'training slice (ROADMAP.md, Slice B)')
-
 
 @SEGMENTORS.register_module()
 class EncoderDecoder(BaseSegmentor):
-    """backbone → decode_head, eval only in this slice."""
+    """backbone → decode_head."""
 
     def __init__(self, backbone, decode_head, neck=None, auxiliary_head=None,
                  train_cfg=None, test_cfg=None, pretrained=None,
@@ -115,8 +118,23 @@ class EncoderDecoder(BaseSegmentor):
         """Logits at the input size, NHWC."""
         return self._logits(self._as_input(img))
 
-    def forward_train(self, img, img_metas, gt_semantic_seg=None, **kwargs):
-        raise NotImplementedError(_TRAINING)
+    # -- training ------------------------------------------------------------
+    def compute_losses(self, img, gt_semantic_seg, generator=None):
+        """The loss dict of an NHWC image batch against its labels
+        ((N, H, W), or (N, H, W, 1) / (N, 1, H, W), which are squeezed), in
+        the module's current mode. ``generator`` draws the dropout masks."""
+        img = self._as_input(img)
+        gt = torch.as_tensor(gt_semantic_seg).to(self.device)
+        if gt.ndim == 4:
+            gt = gt[..., 0] if gt.shape[-1] == 1 else gt[:, 0]
+        feats = self.backbone(img.permute(0, 3, 1, 2))
+        logits = self.decode_head(feats, generator)
+        return add_prefix(self.decode_head.loss_by_feat(
+            logits.permute(0, 2, 3, 1), gt), 'decode')
+
+    def forward_train(self, img, img_metas, gt_semantic_seg, generator=None,
+                      **kwargs):
+        return self.compute_losses(img, gt_semantic_seg, generator)
 
     # -- inference -----------------------------------------------------------
     def _slide_offsets(self, h_img: int, w_img: int):

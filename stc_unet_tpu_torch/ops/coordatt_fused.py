@@ -1,4 +1,5 @@
-"""CoordAtt strip pools (K1) and gate add (K2): CUDA kernels for Hopper.
+"""CoordAtt strip pools (K1), gate add (K2) and its backward (K2b): CUDA
+kernels for Hopper.
 
 Counterpart of ``stc_unet_tpu/ops/coordatt_fused.py``. The kernels are in
 ``csrc/coordatt_fused.cu`` and replace the Pallas kernels there:
@@ -8,16 +9,22 @@ Counterpart of ``stc_unet_tpu/ops/coordatt_fused.py``. The kernels are in
 - ``gate_add`` (K2) ← ``_gate_add_call``/``_gate_add_kernel``:
   ``a_h[:, :, None, :] * a_w[:, None, :, :] + x`` in one read and one write
   of x.
+- ``gate_dots`` (K2b) ← ``_gate_dots_call``/``_gate_dots_kernel``, the
+  backward of ``gate_add``: do (N,H,W,C) → (sum over W of do·a_w (N,H,C),
+  sum over H of do·a_h (N,W,C)), both f32, in one read of do.
 
-Both are bound by memory bytes on the card: the least time is the bytes
-they must move over the 3.35 TB/s of an H100 SXM (K1: x once plus the two
-small outputs; K2: x and out, plus a_h and a_w). The source says what each
-design does about that bound.
+All three are bound by memory bytes on the card: the least time is the
+bytes they must move over the 3.35 TB/s of an H100 SXM (K1: x once plus the
+two small outputs; K2: x and out, plus a_h and a_w; K2b: do once plus a_h,
+a_w and the two small outputs). The source says what each design does
+about that bound.
 
 On a CUDA tensor each wrapper checks its inputs, launches its kernel and
 adds one to its ``launches`` count; it raises on anything the kernel does
 not take. On a CPU tensor it computes the plain PyTorch version
-(``strip_pools_reference``/``gate_add_reference``) and counts nothing.
+(``strip_pools_reference``, ``gate_add_reference``,
+``gate_dots_reference``) and counts nothing. ``gate_add``'s autograd
+backward is ``gate_dots``, so a backward on the card launches K2b.
 
 Unlike the JAX package, which keeps its Pallas kernels off in the model
 (their TPU layout boundary costs more than they save), the port's CoordAtt
@@ -31,26 +38,37 @@ import torch
 
 from ._build import load_library
 
-__all__ = ['strip_pools', 'gate_add', 'strip_pools_reference',
-           'gate_add_reference']
+__all__ = ['strip_pools', 'gate_add', 'gate_dots', 'strip_pools_reference',
+           'gate_add_reference', 'gate_dots_reference']
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_POOL_BAND_ROWS = 64   # rows of x per block of K1's first pass (kPoolBand)
-_TRAINING = ('the backward of gate_add (K2b) is ported with the training '
-             'slice (ROADMAP.md, Slice B)')
+_POOL_BAND_ROWS = 64   # rows per block of K1's and K2b's first pass (kPoolBand)
 _lib = None
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    'stc_strip_pools': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    'stc_gate_add': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    'stc_gate_dots': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+def bind(lib: ctypes.CDLL, names=tuple(_SIGNATURES)) -> ctypes.CDLL:
+    """Set the C signatures of the named kernels of a library built from
+    ``csrc/coordatt_fused.cu`` (or an older version of it, which may lack
+    some); returns lib."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = _I
+    return lib
 
 
 def _kernels():
     global _lib
     if _lib is None:
-        lib = load_library('coordatt_fused')
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.stc_strip_pools.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-        lib.stc_strip_pools.restype = i
-        lib.stc_gate_add.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-        lib.stc_gate_add.restype = i
-        _lib = lib
+        _lib = bind(load_library('coordatt_fused'))
     return _lib
 
 
@@ -96,15 +114,25 @@ def strip_pools_reference(x):
     return xf.sum(2), xf.sum(1)
 
 
-def _strip_pools_kernel(x):
-    _check_x(x)
-    lib = _kernels()
+def _strip_outputs(x):
+    """The two f32 strip outputs of K1/K2b, (N,H,C) and (N,W,C), their band
+    count and the (N, bands, W, C) f32 scratch of the first pass."""
     n, h, w, c = x.shape
-    sum_w = torch.empty((n, h, c), dtype=torch.float32, device=x.device)
-    sum_h = torch.empty((n, w, c), dtype=torch.float32, device=x.device)
+    rows = torch.empty((n, h, c), dtype=torch.float32, device=x.device)
+    cols = torch.empty((n, w, c), dtype=torch.float32, device=x.device)
     bands = -(-h // _POOL_BAND_ROWS)
     scratch = (torch.empty((n, bands, w, c), dtype=torch.float32,
-                           device=x.device) if bands > 1 else sum_h)
+                           device=x.device) if bands > 1 else cols)
+    return rows, cols, bands, scratch
+
+
+def _strip_pools_kernel(x, lib=None):
+    """K1 on x; ``lib`` (default: this checkout's build) is a bound
+    library of another ``coordatt_fused.cu`` when two are compared."""
+    _check_x(x)
+    lib = lib or _kernels()
+    n, h, w, c = x.shape
+    sum_w, sum_h, bands, scratch = _strip_outputs(x)
     with torch.cuda.device(x.device):
         err = lib.stc_strip_pools(x.data_ptr(), sum_w.data_ptr(),
                                   sum_h.data_ptr(), scratch.data_ptr(),
@@ -174,11 +202,15 @@ def _gate_add_kernel(x, a_h, a_w):
 class _GateAdd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, a_h, a_w):
+        ctx.save_for_backward(a_h, a_w)
         return _gate_add_kernel(x, a_h, a_w)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(_TRAINING)
+        # JAX _gate_add_bwd: dx is do itself; dh, dw from K2b, cast once
+        a_h, a_w = ctx.saved_tensors
+        dh, dw = gate_dots(grad_out.contiguous(), a_h, a_w)
+        return grad_out, dh.to(a_h.dtype), dw.to(a_w.dtype)
 
 
 def gate_add(x, a_h, a_w):
@@ -192,3 +224,46 @@ def gate_add(x, a_h, a_w):
 
 
 gate_add.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2b: gate_dots, the backward of gate_add
+# ---------------------------------------------------------------------------
+
+def gate_dots_reference(do, a_h, a_w):
+    """Plain PyTorch K2b: ``(sum_w f32(do)·f32(a_w) (N,H,C), sum_h
+    f32(do)·f32(a_h) (N,W,C))``."""
+    dof = do.float()
+    return ((dof * a_w.float()[:, None]).sum(2),
+            (dof * a_h.float()[:, :, None]).sum(1))
+
+
+def _gate_dots_kernel(do, a_h, a_w):
+    _check_x(do)
+    n, h, w, c = do.shape
+    _check('a_h', a_h, (n, h, c), do.dtype, do.device)
+    _check('a_w', a_w, (n, w, c), do.dtype, do.device)
+    lib = _kernels()
+    dh, dw, bands, scratch = _strip_outputs(do)
+    with torch.cuda.device(do.device):
+        err = lib.stc_gate_dots(do.data_ptr(), a_h.data_ptr(), a_w.data_ptr(),
+                                dh.data_ptr(), dw.data_ptr(),
+                                scratch.data_ptr(), _DTYPES[do.dtype], bands,
+                                n, h, w, c, _stream(do))
+    _raise_on(err, 'gate_dots')
+    gate_dots.launches += 1
+    return dh, dw
+
+
+def gate_dots(do, a_h, a_w):
+    """The backward strip sums of ``gate_add`` in one read of do (N,H,W,C):
+    ``(sum over W of do·a_w -> (N,H,C), sum over H of do·a_h -> (N,W,C))``,
+    both f32; a_h (N,H,C) and a_w (N,W,C) in do's dtype."""
+    if do.device.type == 'cpu':
+        return gate_dots_reference(do, a_h, a_w)
+    if do.device.type != 'cuda':
+        raise ValueError(f'gate_dots: no kernel for device {do.device}')
+    return _gate_dots_kernel(do, a_h, a_w)
+
+
+gate_dots.launches = 0

@@ -3,10 +3,10 @@ against the JAX package's Pallas kernels.
 
 On the CPU the port's wrappers compute their plain PyTorch versions; the
 JAX kernels run in interpret mode. Inputs are made with numpy from a seed.
-Tolerances: the strip sums are f32 sums taken in another order (rtol 1e-5,
-atol 1e-5); the gate add is the same two roundings on both sides (rtol
-1e-6). The CUDA kernels are held to the plain versions on the card in
-``test_torch_kernels_cuda.py``.
+Tolerances: the strip sums and the backward's sums of products are f32
+sums taken in another order (rtol 1e-5, atol 1e-5); the gate add is the
+same two roundings on both sides (rtol 1e-6). The CUDA kernels are held to
+the plain versions on the card in ``test_torch_kernels_cuda.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -54,13 +54,51 @@ def test_gate_add_matches_jax_kernel(shape):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize('shape', [SHAPES[0], SHAPES[1], SHAPES[3]])
+def test_gate_dots_reference_matches_jax_kernel(shape):
+    """K2b's plain version against the JAX backward of gate_add, which runs
+    ``_gate_dots_call`` in interpret mode."""
+    x = _x(shape)
+    do = _x(shape, seed=5)
+    a_h, a_w = _gates(*shape)
+    _, vjp = jax.vjp(lambda *a: jfused.gate_add(*a, True), jnp.asarray(x),
+                     jnp.asarray(a_h), jnp.asarray(a_w))
+    jdx, jdh, jdw = vjp(jnp.asarray(do))
+    dh, dw = tfused.gate_dots(torch.from_numpy(do), torch.from_numpy(a_h),
+                              torch.from_numpy(a_w))
+    assert dh.dtype == dw.dtype == torch.float32
+    np.testing.assert_array_equal(np.asarray(jdx), do)
+    np.testing.assert_allclose(dh.numpy(), np.asarray(jdh), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(jdw), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_gate_add_autograd_on_cpu_matches_jax_vjp():
+    """The CPU autograd of the port's gate_add (its plain version) against
+    ``jax.vjp`` of the JAX kernel in interpret mode."""
+    shape = SHAPES[3]
+    x, do = _x(shape), _x(shape, seed=6)
+    a_h, a_w = _gates(*shape, seed=7)
+    _, vjp = jax.vjp(lambda *a: jfused.gate_add(*a, True), jnp.asarray(x),
+                     jnp.asarray(a_h), jnp.asarray(a_w))
+    ref = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, a_h, a_w)]
+    tfused.gate_add(*leaves).backward(torch.from_numpy(do))
+    for leaf, r in zip(leaves, ref):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(r),
+                                   rtol=1e-5, atol=1e-5)
+
+
 def test_cpu_path_counts_no_launch():
     x = torch.from_numpy(_x((1, 4, 4, 8)))
     a_h, a_w = (torch.from_numpy(a) for a in _gates(1, 4, 4, 8))
-    before = (tfused.strip_pools.launches, tfused.gate_add.launches)
+    counts = (tfused.strip_pools, tfused.gate_add, tfused.gate_dots)
+    before = [f.launches for f in counts]
     tfused.strip_pools(x)
     tfused.gate_add(x, a_h, a_w)
-    assert (tfused.strip_pools.launches, tfused.gate_add.launches) == before
+    tfused.gate_dots(x, a_h, a_w)
+    assert [f.launches for f in counts] == before
 
 
 @pytest.mark.parametrize('bad', ['ndim', 'dtype', 'layout'])
@@ -76,6 +114,9 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(bad):
         tfused._strip_pools_kernel(x)
     with pytest.raises((ValueError, TypeError)):
         tfused._gate_add_kernel(x, torch.zeros(2, 4, 8), torch.zeros(2, 4, 8))
+    with pytest.raises((ValueError, TypeError)):
+        tfused._gate_dots_kernel(x, torch.zeros(2, 4, 8),
+                                 torch.zeros(2, 4, 8))
 
 
 def test_coordatt_module_matches_jax():
