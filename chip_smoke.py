@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``stc_unet_tpu_torch``) on one card.
 
-Drives the port's two paths at full width (``my_config/STC-UNet.py``,
-random weights from seed 0): STC-UNet inference through ``init_segmentor``
-and ``model(return_loss=False, img=[...], img_metas=[...])`` in slide mode
-(crop 256, stride 170: the 9 tiles of each 512² image run as one batch)
-and in whole mode; and the train step through ``make_train_step`` (Adam,
+Drives the port's four paths at full width, with random weights from seed
+0: STC-UNet (``my_config/STC-UNet.py``) and MaxViT-UNet
+(``my_config/MaxViT-UNet.py``) inference through ``init_segmentor`` and
+``model(return_loss=False, img=[...], img_metas=[...])``, STC-UNet in
+slide mode (crop 256, stride 170: the 9 tiles of each 512² image run as
+one batch) and in whole mode, MaxViT-UNet in whole mode (the author's
+test_cfg); and the train step of each through ``make_train_step`` (Adam,
 poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
 
 1. records the environment (torch, CUDA, the card's name and power limit,
    torch's TF32 defaults, which the entry point runs with) and turns TF32
    off for every comparison;
 2. builds the CUDA kernels from ``stc_unet_tpu_torch/csrc``;
-3. holds each kernel (K1 ``strip_pools``, K2 ``gate_add``, K2b
-   ``gate_dots``) against its plain PyTorch version on the card, at the
-   Up-stage shapes of the slide tiles and of whole 512² images, and at odd
-   shapes, in f32 and bf16, with bit-identical reruns for K1 and K2b;
-4. serves slide and whole requests (B=2 at 512², bf16 images, as the
-   benchmark feeds them) and checks that each forward launched each kernel
-   4 times; holds the card's logits on a 256² image against the port on
-   the CPU (f32, TF32 off);
+3. holds each kernel against its plain PyTorch version on the card: K1
+   ``strip_pools``, K2 ``gate_add`` and K2b ``gate_dots`` at the Up-stage
+   shapes of the slide tiles and of whole 512² images, and at odd shapes,
+   with bit-identical reruns for K1 and K2b; K3f ``window_attention`` and
+   K3b ``window_attention_backward`` at MaxViT's B=8 stage shapes, at rate
+   0.1 with the same seed (the same dropout mask), and at odd shapes, with
+   bit-identical reruns of K3b; all in f32 and bf16;
+4. serves STC-UNet slide and whole requests (B=2 at 512², bf16 images, as
+   the benchmark feeds them) and checks that each forward launched K1 and
+   K2 4 times; holds the card's logits on a 256² image against the port
+   on the CPU (f32, TF32 off);
 5. times slide (B=14, 126 tiles), whole (B=8) and the bs-1 whole latency
    with CUDA events, with TF32 off, at torch's defaults and on, and breaks
    one slide forward of each down by kernel with torch.profiler; times each
@@ -36,7 +41,18 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
    K1, K2 and K2b 4 times each, that the loss is finite and that every
    parameter moved; times 10 steps after 2 warm-up steps with CUDA events
    (img/s) and records the peak memory, at torch's TF32 defaults, off and
-   on, and breaks one step at the defaults down by kernel group.
+   on, and breaks one step at the defaults down by kernel group;
+8. serves MaxViT-UNet whole requests (B=2 at 512², bf16) and checks 28
+   K3f launches per forward, and holds its logits to the CPU as in 4
+   (``maxvit_slice``); times whole B=8 and the bs-1 p50 at torch's
+   defaults, with a profile (``maxvit_timing``); times K3f and K3b at the
+   B=8 stage shapes beside their plain versions, the
+   ``scaled_dot_product_attention`` yardstick and their bounds
+   (``window_attention_timing``); takes two train steps on the card and
+   on the CPU as in 6, at 256² with one block per stage
+   (``maxvit_train_check``); and trains as in 7 at torch's defaults with
+   the config's dropout, each step launching K3f and K3b 28 times
+   (``maxvit_train``).
 
     python3 chip_smoke.py
 
@@ -60,16 +76,41 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12          # H100 SXM bf16 tensor cores, dense
+# exponentials: 16 per SM per clock (the special-function units), 132 SMs
+# at the 1.98 GHz clock of the f32 rate (132 SMs x 128 lanes x 2 flops)
+EXPS_PER_S = 132 * 16 * F32_FLOPS / (132 * 128 * 2)
 STAGES = [(32, 32, 1024), (64, 64, 512), (128, 128, 256), (256, 256, 128)]
 WHOLE_STAGES = [(2 * h, 2 * w, c) for h, w, c in STAGES]   # 512² images
 TRAIN_BATCH = 8              # bench.py's train step: B=8 at 512², bf16
 ODD = [(3, 37, 53, 24), (2, 19, 23, 13), (1, 130, 71, 40)]
 SLIDE = dict(mode='slide', crop_size=(256, 256), stride=(170, 170))
-SOURCE = 'stc_unet_tpu_torch/csrc/coordatt_fused.cu'
+CF_SOURCE = 'stc_unet_tpu_torch/csrc/coordatt_fused.cu'
+WA_SOURCE = 'stc_unet_tpu_torch/csrc/window_attention.cu'
 REPLACES = {'strip_pools': 'stc_unet_tpu/ops/coordatt_fused.py:94',
             'gate_add': 'stc_unet_tpu/ops/coordatt_fused.py:150',
-            'gate_dots': 'stc_unet_tpu/ops/coordatt_fused.py:186'}
+            'gate_dots': 'stc_unet_tpu/ops/coordatt_fused.py:186',
+            'window_attention': 'stc_unet_tpu/ops/window_attention.py:244',
+            'window_attention_backward':
+                'stc_unet_tpu/ops/window_attention.py:264'}
 KERNELS = tuple(REPLACES)
+CF_KERNELS = KERNELS[:3]     # K1, K2, K2b in ops/coordatt_fused.py
+WA_KERNELS = KERNELS[3:]     # K3f, K3b in ops/window_attention.py
+STC_CONFIG = 'my_config/STC-UNet.py'
+MAXVIT_CONFIG = 'my_config/MaxViT-UNet.py'
+# launches per forward (and per train step, which adds the backward)
+STC_FORWARD = dict(strip_pools=4, gate_add=4)
+STC_STEP = dict(strip_pools=4, gate_add=4, gate_dots=4)
+MAXVIT_FORWARD = dict(window_attention=28)
+MAXVIT_STEP = dict(window_attention=28, window_attention_backward=28)
+# MaxViT's window attention at B=8, 512²: (windows W, tokens N, channels C,
+# calls per forward) per stage; 32 heads, 8x8 windows and grids; the /4,
+# /8 and /16 stages run in the encoder and the decoder
+WA_HEADS = 32
+WA_STAGES = [(2048, 64, 64, 8), (512, 64, 128, 8), (128, 64, 256, 8),
+             (32, 64, 512, 4)]
+# odd shapes: W not a multiple of K3b's chunk, 7x7 windows, 2 heads of 16
+WA_ODD = [(100, 16, 16, 2), (67, 49, 16, 4), (5, 64, 512, 32)]
 # bench.py's train step
 OPTIMIZER = dict(type='Adam', lr=1e-5, betas=(0.9, 0.999))
 LR_CONFIG = dict(policy='poly', power=0.9, min_lr=1e-6, by_epoch=False)
@@ -85,13 +126,18 @@ def emit(phase, **fields):
     print(json.dumps(dict(phase=phase, **fields)), flush=True)
 
 
-def reset_counts(cf):
-    for name in KERNELS:
-        getattr(cf, name).launches = 0
+def reset_counts(kern):
+    for fn in kern.values():
+        fn.launches = 0
 
 
-def read_counts(cf):
-    return {name: getattr(cf, name).launches for name in KERNELS}
+def read_counts(kern):
+    return {name: fn.launches for name, fn in kern.items()}
+
+
+def per_call(expected):
+    """Every kernel's launches per call: ``expected``'s, else 0."""
+    return {name: expected.get(name, 0) for name in KERNELS}
 
 
 def set_tf32(torch, cudnn, matmul):
@@ -212,24 +258,208 @@ def phase_kernels(torch, cf):
     return err
 
 
-def phase_slice(torch, cf, model, cpu_model_fn):
-    """Serve slide and whole requests; count launches; hold the card's
-    logits against the port on the CPU."""
+def wa_inputs(torch, w, n, c, heads, dtype, seed):
+    """q, k, v (W, N, C) as the model gives them (the thirds of one qkv
+    tensor), bias_e (N, heads·N) f32, a seed and do (W, N, C)."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    qkv = torch.randn((w, n, 3 * c), generator=g, device='cuda').to(dtype)
+    bias_e = 0.1 * torch.randn((n, heads * n), generator=g, device='cuda')
+    sd = torch.randint(2 ** 62, (1,), generator=g, device='cuda')
+    do = torch.randn((w, n, c), generator=g, device='cuda').to(dtype)
+    return (qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], bias_e, sd,
+            do)
+
+
+def wa_tolerance(torch, name, ref, dtype):
+    """The limits of one K3 output against its plain version. f32: sums in
+    another order, rtol 1e-4 and atol 1e-5 of the largest value. bf16 (dq,
+    dk, dv and out, rounded to bf16): the plain version may round an
+    attention weight or a ds entry to the other bf16 neighbour, and the
+    result once more, so rtol 2^-7 and atol 2^-7 of the largest value.
+    dbias is f32 in both."""
+    top = ref.float().abs().max().item()
+    if dtype == torch.float32 or name == 'dbias':
+        return dict(rtol=1e-4, atol=1e-5 * top)
+    return dict(rtol=2 ** -7, atol=2 ** -7 * top)
+
+
+def check_window_attention(torch, wa, inputs, heads, rate):
+    """K3f and K3b (direct and through autograd) against their plain
+    versions at ``rate`` with the same seed; K3b's rerun bit-identical.
+    Returns the two max abs errors."""
+    q, k, v, bias_e, sd, do = inputs
+    scale = heads ** -0.5
+    out = wa.window_attention(q, k, v, bias_e, sd, heads, scale, rate)
+    ref = wa.window_attention_reference(q, k, v, bias_e, sd, heads, scale,
+                                        rate)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **wa_tolerance(torch, 'out', ref, q.dtype))
+    e_fwd = (out.float() - ref.float()).abs().max().item()
+    do = do.contiguous()
+    grads = wa.window_attention_backward(q, k, v, bias_e, sd, do, heads,
+                                         scale, rate)
+    again = wa.window_attention_backward(q, k, v, bias_e, sd, do, heads,
+                                         scale, rate)
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f'window_attention_backward not deterministic '
+                             f'{tuple(q.shape)}')
+    refs = wa.window_attention_backward_reference(q, k, v, bias_e, sd, do,
+                                                  heads, scale, rate)
+    e_bwd = 0.0
+    for name, got, want in zip(('dq', 'dk', 'dv', 'dbias'), grads, refs):
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **wa_tolerance(torch, name, want,
+                                                  q.dtype),
+                                   msg=lambda m: f'{name}: {m}')
+        e_bwd = max(e_bwd, (got.float() - want.float()).abs().max().item())
+    # the autograd Function: its backward is one K3b launch, the same one
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias_e)]
+    before = wa.window_attention_backward.launches
+    wa.window_attention(*leaves, sd, heads, scale, rate).backward(do)
+    if wa.window_attention_backward.launches != before + 1 or not all(
+            torch.equal(leaf.grad, g) for leaf, g in zip(leaves, grads)):
+        raise AssertionError(f'window_attention autograd {tuple(q.shape)}: '
+                             'not one K3b launch with its gradients')
+    return e_fwd, e_bwd
+
+
+def phase_window_attention_kernels(torch, wa):
+    """K3f and K3b against their plain versions on the card: at the B=8
+    stage shapes of MaxViT-UNet (32 heads, 8x8 windows) in f32 and bf16 at
+    rate 0; at a small W at rate 0.1 with the same seed, at the rate-0
+    limits (a weight dropped differently would move its output by about
+    |v|/64, far beyond them: agreement means the same mask); at odd
+    shapes."""
+    err = dict.fromkeys(WA_KERNELS, 0.0)
+    checked = []
+    cases = [(w, n, c, WA_HEADS, 0.0) for w, n, c, _ in WA_STAGES]
+    cases += [(16, 64, 64, WA_HEADS, 0.1), (5, 64, 512, WA_HEADS, 0.1)]
+    cases += [(w, n, c, h, r) for w, n, c, h in WA_ODD for r in (0.0, 0.1)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (w, n, c, h, rate) in enumerate(cases):
+            inputs = wa_inputs(torch, w, n, c, h, dtype, 10 + i)
+            e_fwd, e_bwd = check_window_attention(torch, wa, inputs, h, rate)
+            if rate > 0:
+                q, k, v, bias_e, sd, _ = inputs
+                nodrop = wa.window_attention_reference(q, k, v, bias_e, sd,
+                                                       h, h ** -0.5)
+                out = wa.window_attention(q, k, v, bias_e, sd, h, h ** -0.5,
+                                          rate)
+                moved = (out.float() - nodrop.float()).abs().max().item()
+            err['window_attention'] = max(err['window_attention'], e_fwd)
+            err['window_attention_backward'] = max(
+                err['window_attention_backward'], e_bwd)
+            checked.append(dict(
+                shape=[w, n, c], heads=h, dtype=str(dtype)[6:], rate=rate,
+                window_attention_err=e_fwd,
+                window_attention_backward_err=e_bwd,
+                **(dict(dropout_moves_out_by=moved) if rate > 0 else {})))
+            del inputs
+        torch.cuda.empty_cache()
+    emit('window_attention_kernels', ok=True, checked=checked,
+         tolerance=dict(
+             float32='rtol 1e-4, atol 1e-5 of the largest value',
+             bfloat16='dq, dk, dv, out: rtol 2^-7, atol 2^-7 of the '
+                      'largest value; dbias as f32',
+             rate='0.1 against the plain version with the same seed, at '
+                  'the rate-0 limits',
+             determinism='two K3b runs bit-identical; the autograd '
+                         'backward is one K3b launch with the same '
+                         'gradients'))
+    return err
+
+
+def sdpa_heads(torch, t, heads):
+    """(W, N, C) -> a contiguous (W, heads, N, d) leaf that needs grad."""
+    w, n, c = t.shape
+    return t.reshape(w, n, heads, c // heads).transpose(1, 2).contiguous(
+    ).requires_grad_(True)
+
+
+def phase_window_attention_timing(torch, wa, err):
+    """K3f and K3b at the B=8 stage shapes of MaxViT-UNet in bf16, rate 0,
+    each beside its plain version and a PyTorch yardstick
+    (``F.scaled_dot_product_attention`` with the bias as its mask, and its
+    autograd backward), with its bound; each held against its plain
+    version on those inputs, its error folded into err."""
+    import torch.nn.functional as F
+    per = {name: [] for name in WA_KERNELS}
+    h = WA_HEADS
+    scale = h ** -0.5
+    for i, (w, n, c, calls) in enumerate(WA_STAGES):
+        inputs = wa_inputs(torch, w, n, c, h, torch.bfloat16, 200 + i)
+        q, k, v, bias_e, sd, do = inputs
+        do = do.contiguous()
+        e_fwd, e_bwd = check_window_attention(torch, wa, inputs, h, 0.0)
+        err['window_attention'] = max(err['window_attention'], e_fwd)
+        err['window_attention_backward'] = max(
+            err['window_attention_backward'], e_bwd)
+        qh, kh, vh = (sdpa_heads(torch, t, h) for t in (q, k, v))
+        mask = bias_e.reshape(n, h, n).transpose(0, 1)[None].to(
+            torch.bfloat16).contiguous().requires_grad_(True)
+        doh = do.reshape(w, n, h, c // h).transpose(1, 2).contiguous()
+        sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  scale=scale)
+        elems = w * n * c * 2                 # bytes of one (W, N, C) bf16
+        exps = w * h * n * n
+        dots = 2 * w * n * n * c              # flops of one N x N x d product
+        fwd = dict(
+            ms=event_ms(torch, lambda: wa.window_attention(
+                q, k, v, bias_e, sd, h, scale)),
+            plain_ms=event_ms(torch, lambda: wa.window_attention_reference(
+                q, k, v, bias_e, sd, h, scale), iters=3),
+            library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, scale=scale)),
+            bytes=4 * elems + bias_e.numel() * 4, exps=exps,
+            flops=2 * dots, max_abs_err=e_fwd)
+        bwd = dict(
+            ms=event_ms(torch, lambda: wa.window_attention_backward(
+                q, k, v, bias_e, sd, do, h, scale)),
+            plain_ms=event_ms(
+                torch, lambda: wa.window_attention_backward_reference(
+                    q, k, v, bias_e, sd, do, h, scale), iters=3),
+            library_ms=event_ms(torch, lambda: torch.autograd.grad(
+                sdpa_out, (qh, kh, vh, mask), doh, retain_graph=True)),
+            bytes=7 * elems + 2 * bias_e.numel() * 4, exps=exps,
+            flops=5 * dots, max_abs_err=e_bwd)
+        for name, r in zip(WA_KERNELS, (fwd, bwd)):
+            r.update(shape=[w, n, c], heads=h, calls=calls)
+            per[name].append(bound(r, BF16_FLOPS))
+        del inputs, q, k, v, do, qh, kh, vh, mask, doh, sdpa_out
+        torch.cuda.empty_cache()
+    emit('window_attention_timing', dtype='bfloat16', batch=TRAIN_BATCH,
+         rate=0.0, library=dict(
+             window_attention='F.scaled_dot_product_attention(q, k, v, '
+                              'attn_mask=bias (1, H, N, N) bf16, scale)',
+             window_attention_backward='torch.autograd.grad of it to q, '
+                                       'k, v and the mask'),
+         bound='largest of bytes / 3.35 TB/s, exponentials / 4.2e12 per '
+               's, dot-product flops / 989 TFLOP/s (bf16)',
+         stages=per)
+    return per
+
+
+def phase_slice(torch, kern, model, cpu_model_fn, config, modes, expected,
+                phase='slice'):
+    """Serve requests in each of ``modes`` (B=2 at 512², bf16 images);
+    check each forward's launches against ``expected``; hold the card's
+    logits against the port on the CPU. Returns the launches."""
     g = torch.Generator(device='cuda').manual_seed(1)
     imgs = torch.rand((2, 512, 512, 3), generator=g,
                       device='cuda').to(torch.bfloat16)
     launches = dict.fromkeys(KERNELS, 0)
+    want = per_call(expected)
     served = {}
-    for mode in ('slide', 'whole'):
+    for mode in modes:
         model.test_cfg = dict(SLIDE) if mode == 'slide' else dict(mode=mode)
-        reset_counts(cf)
+        reset_counts(kern)
         t0 = time.perf_counter()
         preds = model(return_loss=False, img=[imgs], img_metas=[metas(2, 512)])
         seconds = time.perf_counter() - t0
-        counts = read_counts(cf)
-        if counts != {'strip_pools': 4, 'gate_add': 4, 'gate_dots': 0}:
-            raise AssertionError(f'{mode}: kernel launches {counts}, want 4 '
-                                 'of K1 and K2, none of K2b')
+        counts = read_counts(kern)
+        if counts != want:
+            raise AssertionError(f'{mode}: kernel launches {counts}, want '
+                                 f'{want}')
         for k in launches:
             launches[k] += counts[k]
         if len(preds) != 2 or any(p.shape != (512, 512) or
@@ -254,8 +484,9 @@ def phase_slice(torch, cf, model, cpu_model_fn):
     margin_err = ((on_card[..., 1] - on_card[..., 0]) -
                   margin).abs().max().item()
     margin_std = margin.std().item()
-    # The seeded model's logits are small (|max| ~0.2) and its class margin
-    # spreads ~1e-2, so the limits are set against those, not against 1.
+    # The seeded models' logits are small (STC-UNet: |max| ~0.2) and their
+    # class margins spread ~1e-2, so the limits are set against those, not
+    # against 1.
     torch.testing.assert_close(on_card, on_cpu, rtol=1e-5, atol=1e-5)
     if margin_err > 1e-3 * margin_std:
         raise AssertionError(f'class margin off by {margin_err}, over 1e-3 '
@@ -263,7 +494,7 @@ def phase_slice(torch, cf, model, cpu_model_fn):
     agree = (on_card.argmax(-1) == on_cpu.argmax(-1)).float().mean().item()
     if agree < 0.999:
         raise AssertionError(f'argmax agreement {agree} < 0.999')
-    emit('slice', ok=True, config='my_config/STC-UNet.py', served=served,
+    emit(phase, ok=True, config=config, served=served,
          cpu_check=dict(size=256, mode='whole', dtype='float32',
                         max_abs_err=max_err, argmax_agreement=agree,
                         logits_abs_max=on_cpu.abs().max().item(),
@@ -274,6 +505,48 @@ def phase_slice(torch, cf, model, cpu_model_fn):
                                   'margin within 1e-3 of its std; argmax '
                                   '>= 0.999'))
     return launches
+
+
+def whole_and_p50(torch, model, img):
+    """Whole inference of the B=8 batch ``img[:8]`` (CUDA events, median
+    of 5 after 2 warm-up calls) and the bs-1 p50 latency (host clock with
+    synchronize, 20 calls after 2)."""
+    model.test_cfg = dict(mode='whole')
+    whole_ms = event_ms(torch, lambda: model.whole_inference(
+        img[:8], None, False), iters=5)
+    lat = []
+    one = img[:1]
+    for i in range(22):
+        t0 = time.perf_counter()
+        model.whole_inference(one, None, False)
+        torch.cuda.synchronize()
+        if i >= 2:
+            lat.append((time.perf_counter() - t0) * 1e3)
+    return whole_ms, statistics.median(lat)
+
+
+def phase_maxvit_timing(torch, model, tf32):
+    """MaxViT-UNet whole inference at the TF32 setting ``tf32`` (label,
+    cudnn, matmul): B=8 and the bs-1 p50 on bf16 512² images, the peak
+    memory, and one B=8 forward by kernel group."""
+    label, cudnn, matmul = tf32
+    set_tf32(torch, cudnn, matmul)
+    g = torch.Generator(device='cuda').manual_seed(3)
+    img = torch.rand((8, 512, 512, 3), generator=g,
+                     device='cuda').to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    whole_ms, p50 = whole_and_p50(torch, model, img)
+    peak = torch.cuda.max_memory_allocated()
+    emit('profile', run='maxvit whole', batch=8, tf32=label,
+         **profile_run(torch, lambda: model.whole_inference(img, None, False),
+                       whole_ms))
+    set_tf32(torch, False, False)
+    emit('maxvit_timing', config=MAXVIT_CONFIG, image='bf16 512x512',
+         tf32=label, cudnn_allow_tf32=cudnn, matmul_allow_tf32=matmul,
+         whole_ms_b8=whole_ms, whole_slices_per_s=8e3 / whole_ms,
+         p50_ms_bs1=p50, peak_mem_gb=peak / 1e9,
+         timer='CUDA events, median of 5 after 2 warmup; p50 on the host '
+               'clock with synchronize, 20 calls')
 
 
 def phase_timing(torch, model, settings):
@@ -290,23 +563,13 @@ def phase_timing(torch, model, settings):
         slide_ms = event_ms(torch, lambda: model.slide_inference(
             img, None, False), iters=5)
         peak = torch.cuda.max_memory_allocated()
-        model.test_cfg = dict(mode='whole')
-        whole_ms = event_ms(torch, lambda: model.whole_inference(
-            img[:8], None, False), iters=5)
-        lat = []
-        one = img[:1]
-        for i in range(22):
-            t0 = time.perf_counter()
-            model.whole_inference(one, None, False)
-            torch.cuda.synchronize()
-            if i >= 2:
-                lat.append((time.perf_counter() - t0) * 1e3)
+        whole_ms, p50 = whole_and_p50(torch, model, img)
         rows.append(dict(
             tf32=label, cudnn_allow_tf32=cudnn, matmul_allow_tf32=matmul,
             slide_ms_b14=slide_ms, slide_slices_per_s=14e3 / slide_ms,
             slide_peak_mem_gb=peak / 1e9,
             whole_ms_b8=whole_ms, whole_slices_per_s=8e3 / whole_ms,
-            p50_ms_bs1=statistics.median(lat)))
+            p50_ms_bs1=p50))
         model.test_cfg = dict(SLIDE)
         emit('profile', run='slide', batch=img.shape[0], tf32=label,
              **profile_run(torch, lambda: model.slide_inference(
@@ -318,11 +581,13 @@ def phase_timing(torch, model, settings):
     return rows
 
 
-def bound(r):
-    """Fill in r's bound: the larger of its bytes over the memory rate and
-    its operations over the f32 rate."""
+def bound(r, flop_rate=F32_FLOPS):
+    """Fill in r's bound: the largest of its bytes over the memory rate,
+    its flops over ``flop_rate`` (the peak for their inputs' type) and its
+    exponentials (``exps``, if any) over the special-function units'
+    rate."""
     t_bytes = r['bytes'] / HBM_BYTES_PER_S * 1e3
-    t_ops = r['flops'] / F32_FLOPS * 1e3
+    t_ops = max(r['flops'] / flop_rate, r.get('exps', 0) / EXPS_PER_S) * 1e3
     r.update(bound_ms=max(t_bytes, t_ops),
              bound_by='bytes' if t_bytes >= t_ops else 'operations')
     return r
@@ -463,11 +728,15 @@ def _worst(rel, k=6):
     return dict(sorted(rel.items(), key=lambda kv: -kv[1])[:k])
 
 
-def phase_train_check(torch, cfg, init_segmentor):
+def phase_train_check(torch, cfg, init_segmentor, size, phase='train_check',
+                      focus=('coordatt', '.ca.')):
     """Two train steps at full width on the card and on the port on the
-    CPU, from the same weights: 64² images, B=2, f32, TF32 off (set by
-    main), no dropout. Compares each step's losses, the first step's
-    gradients and BN running stats, and the step count of every BN.
+    CPU, from the same weights: ``size``² images, B=2, f32, TF32 off (set
+    by main), with every dropout rate of ``cfg`` at 0 (set by the caller).
+    Compares each step's losses, the first step's gradients and BN running
+    stats, and the step count of every BN. ``focus`` (a name and a key
+    fragment) picks the tensors of the kernels' layers for their own
+    report.
 
     The gradient of the seeded full-width model at this input is touchy:
     moving the image and the weights by one f32 ulp moves it by about 1 %
@@ -478,15 +747,15 @@ def phase_train_check(torch, cfg, init_segmentor):
     the whole's yardstick, and each tensor against its own (at least
     GRAD_FLOOR). A nudge moves nearly every tensor together, by an amount
     that varies several-fold from one nudge to the next, so two nudges are
-    too few to gauge it. The kernels themselves are held tightly in phase
-    ``kernels``, the autograd of ``gate_add`` included."""
-    cfg.model.decode_head.dropout_ratio = 0.0
+    too few to gauge it. The kernels themselves are held tightly in phases
+    ``kernels`` and ``window_attention_kernels``, their autograd
+    included."""
     card = init_segmentor(cfg)
     cpu = init_segmentor(cfg, device='cpu')
     cpu_state = {k: v.cpu() for k, v in card.state_dict().items()}
     cpu.load_state_dict(cpu_state)
     g = torch.Generator().manual_seed(4)
-    img = torch.rand((2, 64, 64, 3), generator=g)
+    img = torch.rand((2, size, size, 3), generator=g)
     gt = (img.mean(-1) > 0.5).long()
     gt[:, :3] = 255                      # ignored pixels
     steps = {'card': train_step_for(torch, card),
@@ -530,7 +799,8 @@ def phase_train_check(torch, cfg, init_segmentor):
     faults += [f'gradient {k} off by {e} of its norm, over 3 x {yard[k]}'
                for k, e in rel.items() if e > 3 * yard[k]]
     ratio = {k: e / yard[k] for k, e in rel.items()}
-    coordatt = {k: e for k, e in rel.items() if '.ca.' in k}
+    name, part = focus
+    focused = {k: e for k, e in rel.items() if part in k}
     # the BN running stats after the first step, which come from the
     # forward of the same weights (rtol 1e-4, atol 1e-5); the second
     # step's follow Adam's first update, whose sign on coordinates with a
@@ -546,22 +816,22 @@ def phase_train_check(torch, cfg, init_segmentor):
         for k, v in m.state_dict().items():
             if k.endswith('num_batches_tracked') and int(v) != 2:
                 faults.append(f'{k}: {int(v)}, want 2')
-    emit('train_check', ok=not faults, faults=faults[:8], size=64, batch=2,
+    emit(phase, ok=not faults, faults=faults[:8], size=size, batch=2,
          dtype='float32', tf32=False, dropout_ratio=0.0, losses=logs,
          grad_tensors=len(grads['cpu']), grad_tensors_compared=len(rel),
          grad_whole=whole, grad_tensor_median=statistics.median(rel.values()),
          grad_worst=_worst(rel),
-         grad_coordatt_worst=_worst(coordatt, 4),
+         **{f'grad_{name}_worst': _worst(focused, 4),
+            f'grad_{name}_over_own_one_ulp_worst': _worst(
+                {k: r for k, r in ratio.items() if part in k}, 4),
+            f'one_ulp_{name}_worst': [
+                _worst({k: e for k, e in r.items() if part in k}, 2)
+                for r, _ in nudged]},
          grad_over_own_one_ulp_worst=_worst(ratio),
-         grad_coordatt_over_own_one_ulp_worst=_worst(
-             {k: r for k, r in ratio.items() if '.ca.' in k}, 4),
          one_ulp_whole=[w for _, w in nudged],
          one_ulp_tensor_median=[statistics.median(r.values())
                                 for r, _ in nudged],
          one_ulp_worst=[_worst(r, 3) for r, _ in nudged],
-         one_ulp_coordatt_worst=[_worst({k: e for k, e in r.items()
-                                         if '.ca.' in k}, 2)
-                                 for r, _ in nudged],
          bn_stats_step1_max_abs_err=stats_err,
          tolerance=f'losses rtol 1e-5; acc_seg within 3 pixels; gradient '
                    f'as a whole within 3x the largest of '
@@ -570,25 +840,27 @@ def phase_train_check(torch, cfg, init_segmentor):
                    f'changes (at least {GRAD_FLOOR}), nudges on the CPU; '
                    f'step-1 BN stats rtol 1e-4 atol 1e-5')
     if faults:
-        raise AssertionError(f'train_check: {faults[:3]}')
+        raise AssertionError(f'{phase}: {faults[:3]}')
     del card, cpu, steps, models
     torch.cuda.empty_cache()
 
 
-def phase_train(torch, cf, model, settings):
+def phase_train(torch, kern, model, settings, config, expected,
+                dropout_ratio, phase='train'):
     """bench.py's train step on the full-width model: B=8 at 512², bf16
-    compute, Adam lr 1e-5 with the poly lr, dropout 0.1 from a seeded
-    generator. Per TF32 setting ``(label, cudnn, matmul)``: 2 warm-up
-    steps, each checked to launch K1, K2 and K2b 4 times, then 10 steps
-    timed with one CUDA event pair; the loss must be finite and every
-    parameter must move. The first setting's run is profiled by kernel
-    group. Returns the launches of all steps."""
+    compute, Adam lr 1e-5 with the poly lr, the config's dropout from a
+    seeded generator. Per TF32 setting ``(label, cudnn, matmul)``: 2
+    warm-up steps, each checked to launch the kernels ``expected`` times,
+    then 10 steps timed with one CUDA event pair; the loss must be finite
+    and every parameter must move. The first setting's run is profiled by
+    kernel group. Returns the launches of all steps."""
     g = torch.Generator(device='cuda').manual_seed(5)
     img = torch.rand((TRAIN_BATCH, 512, 512, 3), generator=g, device='cuda')
     gt = (img.mean(-1) > 0.5).long()
     drop = torch.Generator(device='cuda').manual_seed(6)
     params = dict(model.named_parameters())
     launches = dict.fromkeys(KERNELS, 0)
+    want = per_call(expected)
     rows = []
     for label, cudnn, matmul in settings:
         set_tf32(torch, cudnn, matmul)
@@ -597,16 +869,16 @@ def phase_train(torch, cf, model, settings):
         torch.cuda.reset_peak_memory_stats()
         losses = []
         for _ in range(2):
-            reset_counts(cf)
+            reset_counts(kern)
             losses.append(step(img, gt, drop)['loss'])
-            counts = read_counts(cf)
-            if counts != dict.fromkeys(KERNELS, 4):
-                raise AssertionError(f'train step launches {counts}, want 4 '
-                                     'of each')
+            counts = read_counts(kern)
+            if counts != want:
+                raise AssertionError(f'train step launches {counts}, want '
+                                     f'{want}')
             for k in KERNELS:
                 launches[k] += counts[k]
         iters = 10
-        reset_counts(cf)
+        reset_counts(kern)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -615,8 +887,8 @@ def phase_train(torch, cf, model, settings):
         end.record()
         end.synchronize()
         ms = start.elapsed_time(end) / iters
-        counts = read_counts(cf)
-        if counts != dict.fromkeys(KERNELS, 4 * iters):
+        counts = read_counts(kern)
+        if counts != {k: iters * n for k, n in want.items()}:
             raise AssertionError(f'{iters} train steps launched {counts}')
         for k in KERNELS:
             launches[k] += counts[k]
@@ -634,14 +906,16 @@ def phase_train(torch, cf, model, settings):
                          img_per_s=TRAIN_BATCH * 1e3 / ms,
                          peak_mem_gb=peak / 1e9, losses=losses.tolist()))
         if len(rows) == 1:
-            emit('profile', run='train step', batch=TRAIN_BATCH, tf32=label,
+            emit('profile', run=f'{phase} step', batch=TRAIN_BATCH,
+                 tf32=label,
                  **profile_run(torch, lambda: step(img, gt, drop), ms))
     set_tf32(torch, False, False)
-    emit('train', ok=True, config='my_config/STC-UNet.py', batch=TRAIN_BATCH,
+    emit(phase, ok=True, config=config, batch=TRAIN_BATCH,
          size=512, compute_dtype='bfloat16', optimizer=OPTIMIZER,
-         lr_config=LR_CONFIG, max_iters=MAX_ITERS, dropout_ratio=0.1,
+         lr_config=LR_CONFIG, max_iters=MAX_ITERS,
+         dropout_ratio=dropout_ratio,
          timer='one CUDA event pair over 10 steps after 2 warm-up steps',
-         launches_per_step=dict.fromkeys(KERNELS, 4), rows=rows)
+         launches_per_step=want, rows=rows)
     return launches
 
 
@@ -649,11 +923,14 @@ def _kernel_group(name):
     low = name.lower()
     for group, keys in (
             ('coordatt K1/K2/K2b', ('strip_band', 'gate_add')),
+            ('window attention K3f/K3b', ('wa_fwd', 'wa_bwd', 'wa_dbias')),
             ('optimizer', ('adam', 'multi_tensor')),
             ('conv (FFT)', ('fft', 'cf32')),
             ('conv', ('fprop', 'conv', 'implicit', 'nchwtonhwc',
                       'nhwctonchw', 'wgrad', 'dgrad')),
             ('matmul', ('gemm', 'bmm', 'gemv')),
+            ('layer norm', ('layer_norm',)),
+            ('random (dropout masks)', ('distribution', 'philox')),
             ('softmax', ('softmax',)),
             ('upsample', ('upsample',)),
             ('pool', ('pool',)),
@@ -707,6 +984,7 @@ def main(argv=None):
     from stc_unet_tpu_torch.apis import init_segmentor
     from stc_unet_tpu_torch.ops import _build
     from stc_unet_tpu_torch.ops import coordatt_fused as cf
+    from stc_unet_tpu_torch.ops import window_attention as wa
     from stc_unet_tpu_torch.utils import Config
 
     # 1. env; torch's TF32 defaults are what init_segmentor's caller gets
@@ -734,22 +1012,28 @@ def main(argv=None):
          built={k: v['built'] for k, v in libs.items()},
          ptxas=[ln.strip() for v in libs.values()
                 for ln in v['log'].splitlines()
-                if 'registers' in ln or 'spill' in ln][:24])
+                if 'registers' in ln or 'spill' in ln][:80])
 
     # 3. kernels against their plain versions
     err = phase_kernels(torch, cf)
+    err.update(phase_window_attention_kernels(torch, wa))
+    kern = {name: getattr(cf if name in CF_KERNELS else wa, name)
+            for name in KERNELS}
 
-    # 4. the main path
-    cfg_path = os.path.join(REPO, 'my_config', 'STC-UNet.py')
+    # 4. the STC-UNet path
+    cfg_path = os.path.join(REPO, STC_CONFIG)
     model = init_segmentor(Config.fromfile(cfg_path))
 
-    def cpu_model():
-        m = init_segmentor(Config.fromfile(cfg_path), device='cpu')
-        m.load_state_dict({k: v.cpu() for k, v in
-                           model.state_dict().items()})
-        return m
+    def cpu_model(path, card):
+        def build():
+            m = init_segmentor(Config.fromfile(path), device='cpu')
+            m.load_state_dict({k: v.cpu() for k, v in
+                               card.state_dict().items()})
+            return m
+        return build
 
-    launches = phase_slice(torch, cf, model, cpu_model)
+    launches = phase_slice(torch, kern, model, cpu_model(cfg_path, model),
+                           STC_CONFIG, ('slide', 'whole'), STC_FORWARD)
 
     # 5. timing
     phase_timing(torch, model, [('off', False, False),
@@ -758,25 +1042,59 @@ def main(argv=None):
     per = phase_kernel_timing(torch, cf, err)
 
     # 6. and 7. the train step
-    phase_train_check(torch, Config.fromfile(cfg_path), init_segmentor)
-    trained = phase_train(torch, cf, model, [('torch default',) + default_tf32,
-                                             ('off', False, False),
-                                             ('on', True, True)])
+    cfg = Config.fromfile(cfg_path)
+    cfg.model.decode_head.dropout_ratio = 0.0
+    phase_train_check(torch, cfg, init_segmentor, 64)
+    trained = phase_train(torch, kern, model,
+                          [('torch default',) + default_tf32,
+                           ('off', False, False), ('on', True, True)],
+                          STC_CONFIG, STC_STEP, 0.1)
     for name in KERNELS:
         launches[name] += trained[name]
+    del model
+    torch.cuda.empty_cache()
 
+    # 8. the MaxViT-UNet path: whole inference, timing, the train step
+    mv_path = os.path.join(REPO, MAXVIT_CONFIG)
+    model = init_segmentor(Config.fromfile(mv_path))
+    served = phase_slice(torch, kern, model, cpu_model(mv_path, model),
+                         MAXVIT_CONFIG, ('whole',), MAXVIT_FORWARD,
+                         phase='maxvit_slice')
+    phase_maxvit_timing(torch, model, ('torch default',) + default_tf32)
+    per.update(phase_window_attention_timing(torch, wa, err))
+    # two steps card vs CPU at 256², the least size the /32 stage's 8x8
+    # windows take, with one block per stage to keep the CPU side short
+    cfg = Config.fromfile(mv_path)
+    for part in (cfg.model.backbone, cfg.model.decode_head):
+        part.update(attn_drop=0.0, drop=0.0, drop_path=0.0)
+    cfg.model.backbone.depths = (1, 1, 1, 1)
+    cfg.model.decode_head.update(depths=(1, 1, 1), dropout_ratio=0.0)
+    phase_train_check(torch, cfg, init_segmentor, 256,
+                      phase='maxvit_train_check',
+                      focus=('attention', '.attention.'))
+    trained = phase_train(torch, kern, model,
+                          [('torch default',) + default_tf32], MAXVIT_CONFIG,
+                          MAXVIT_STEP, 0.1, phase='maxvit_train')
+    for name in KERNELS:
+        launches[name] += served[name] + trained[name]
+    del model
+    torch.cuda.empty_cache()
+
+    # the kernels of both paths: the times of one forward's (K1, K2, K3f)
+    # or one step's (K2b, K3b) launches at the timed shapes
     kernels = []
     for name in KERNELS:
         rows = per[name]
+        calls = [r.get('calls', 1) for r in rows]
         kernels.append(dict(
-            name=name, route='cuda', source=SOURCE, replaces=REPLACES[name],
-            launches=launches[name], max_abs_err=err[name],
-            ms=sum(r['ms'] for r in rows),
-            plain_ms=sum(r['plain_ms'] for r in rows),
-            bound_ms=sum(r['bound_ms'] for r in rows),
+            name=name, route='cuda',
+            source=CF_SOURCE if name in CF_KERNELS else WA_SOURCE,
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=err[name],
+            **{key: sum(n * r[key] for n, r in zip(calls, rows))
+               for key in ('ms', 'plain_ms', 'bound_ms', 'library_ms')},
             bound_by='bytes' if all(r['bound_by'] == 'bytes' for r in rows)
-            else 'operations',
-            library_ms=sum(r['library_ms'] for r in rows)))
+            else 'operations'))
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -202,7 +202,8 @@ class UnetBackbone(nn.Module):
             self.aspp4 = TransformerBlock(cl[3], 2, 4)
             self.aspp5 = TransformerBlock(cl[3], 2, 4)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """The 5 scales; the encoder draws nothing from ``generator``."""
         x1 = self.inc(x)
         x2 = self.down1(x1)
         x3 = self.down2(x2)

@@ -1,19 +1,22 @@
 """Neural building blocks for the port (NCHW ``nn.Module``s).
 
 Counterpart of ``stc_unet_tpu/models/bricks.py``, only what the STC-UNet
-path uses. Parameters are stored f32 with torch's names (``weight``,
+and MaxViT-UNet paths use. Parameters are stored f32 with torch's names (``weight``,
 ``bias``, ``running_mean``, ...), so ``state_dict`` keys are the reference
 fork's. The dtype rules are the JAX package's:
 
-- ``Conv2d`` and ``Linear`` cast their f32 weights to ``x.dtype`` at use,
-  as ``nn.Conv``/``nn.Dense(dtype=x.dtype)`` do;
+- ``Conv2d``, ``ConvTranspose2d`` and ``Linear`` cast their f32 weights to
+  ``x.dtype`` at use, as ``nn.Conv``/``nn.ConvTranspose``/
+  ``nn.Dense(dtype=x.dtype)`` do;
+- ``LayerNorm`` normalises in f32 and casts back to ``x.dtype``, as flax's
+  ``nn.LayerNorm(dtype=x.dtype)`` does;
 - ``BatchNorm`` computes in f32 and casts back to ``x.dtype``, in the
   order of the JAX brick, in training mode too.
 
 Pooling and padding are torch's own (``nn.MaxPool2d``, ``F.pad``): they
-already have the JAX bricks' torch semantics. ``Dropout2d`` draws its
-mask from a ``torch.Generator`` the caller hands in, as the JAX brick
-draws it from the ``dropout`` rng.
+already have the JAX bricks' torch semantics. ``Dropout`` and
+``Dropout2d`` draw their masks from a ``torch.Generator`` the caller hands
+in, as the JAX modules draw them from the ``dropout`` rng.
 """
 from __future__ import annotations
 
@@ -48,6 +51,29 @@ class Linear(nn.Linear):
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """torch ConvTranspose2d whose f32 weights are cast to the input's
+    dtype. Its weight (in, out, kh, kw) is the flax kernel (kh, kw, in, out)
+    flipped in both spatial axes (``utils/jax_convert.py``)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last axis, computed in f32 and cast back to
+    ``x.dtype`` (flax ``nn.LayerNorm(dtype=x.dtype)``; its default eps here
+    is the JAX modules' 1e-5)."""
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(x.dtype)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -85,6 +111,16 @@ class BatchNorm(nn.BatchNorm2d):
         return y.to(x.dtype)
 
 
+def drop_scaled(x, rate: float, shape, generator=None):
+    """x with entries dropped at ``rate`` and the kept ones scaled by
+    ``1 / (1 - rate)``, in x's dtype; one keep per element of ``shape``
+    (broadcast over x), drawn from ``generator``."""
+    keep = 1.0 - float(rate)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+
+
 class Dropout2d(nn.Module):
     """Channel dropout (JAX ``bricks.py:442-449``): in training, one keep
     mask per (n, c), kept channels scaled by ``1 / (1 - p)``. The mask is
@@ -98,8 +134,21 @@ class Dropout2d(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if not self.training or self.p == 0:
             return x
-        keep = 1.0 - self.p
-        mask = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
-                          device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
+        return drop_scaled(x, self.p, (x.shape[0], x.shape[1], 1, 1),
+                           generator)
+
+
+class Dropout(nn.Module):
+    """Element dropout (flax ``nn.Dropout``): in training, each element is
+    kept with ``1 - p`` and scaled by ``1 / (1 - p)``; the mask is drawn
+    from ``generator`` (a ``torch.Generator`` on x's device), or from
+    torch's default one when it is None. The identity in eval."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if not self.training or self.p == 0:
+            return x
+        return drop_scaled(x, self.p, x.shape, generator)

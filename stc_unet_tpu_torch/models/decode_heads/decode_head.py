@@ -1,7 +1,7 @@
 """BaseDecodeHead (≙ ``stc_unet_tpu/models/decode_heads/decode_head.py``).
 
-The out_channels/threshold resolution, the input selection, the
-classifier (``Dropout2d`` in training + a 1x1 conv) and the losses
+The out_channels/threshold resolution, the input selection and merging,
+the classifier (``Dropout2d`` in training + a 1x1 conv) and the losses
 (``loss_by_feat``). Heads take and return NCHW tensors; ``loss_by_feat``
 takes NHWC logits, as the JAX function does.
 """
@@ -10,6 +10,7 @@ from __future__ import annotations
 import warnings
 from typing import Any, Optional
 
+import torch
 import torch.nn as nn
 
 from stc_unet_tpu_torch.ops import resize
@@ -52,13 +53,25 @@ class BaseDecodeHead(nn.Module):
                  sampler: Optional[dict] = None, align_corners: bool = False,
                  init_cfg: Optional[dict] = None):
         super().__init__()
+        # the reference's _init_inputs contract: with a transform,
+        # in_channels and in_index are sequences of one length; without,
+        # both are ints
         if input_transform is not None:
-            raise NotImplementedError(
-                f'input_transform={input_transform!r} is not ported yet')
-        assert isinstance(in_channels, int), \
-            'in_channels must be an int without input_transform'
-        assert isinstance(in_index, int), \
-            'in_index must be an int without input_transform'
+            assert input_transform in ('resize_concat', 'multiple_select'), \
+                (f"input_transform must be 'resize_concat' or "
+                 f"'multiple_select', got {input_transform!r}")
+            assert isinstance(in_channels, (list, tuple)), \
+                'in_channels must be a list/tuple with input_transform'
+            assert isinstance(in_index, (list, tuple)), \
+                'in_index must be a list/tuple with input_transform'
+            assert len(in_channels) == len(in_index), \
+                (f'in_channels ({len(in_channels)}) and in_index '
+                 f'({len(in_index)}) must have equal length')
+        else:
+            assert isinstance(in_channels, int), \
+                'in_channels must be an int without input_transform'
+            assert isinstance(in_index, int), \
+                'in_index must be an int without input_transform'
         self.num_classes = num_classes
         self.in_channels = in_channels
         self.channels = channels
@@ -94,8 +107,27 @@ class BaseDecodeHead(nn.Module):
         self.conv_seg = Conv2d(in_channels, self.final_out_channels, 1)
 
     def _transform_inputs(self, inputs):
-        """Select the feature level ``in_index``."""
-        return inputs[self.in_index]
+        """Select or merge the backbone's NCHW feature levels (JAX
+        ``decode_head.py:111-127``): ``resize_concat`` resizes the levels
+        of ``in_index`` to the first one's size (bilinear) and concatenates
+        them on channels; ``multiple_select`` returns them as a list;
+        otherwise the level ``in_index``."""
+        if self.input_transform == 'resize_concat':
+            xs = [inputs[i] for i in self.in_index]
+            size = xs[0].shape[2:]
+            ups = [resize(x.permute(0, 2, 3, 1), size=size, mode='bilinear',
+                          align_corners=self.align_corners,
+                          warning=False).permute(0, 3, 1, 2) for x in xs]
+            return torch.cat(ups, 1)
+        if self.input_transform == 'multiple_select':
+            idx = self.in_index
+            if isinstance(idx, int):
+                idx = [idx]
+            return [inputs[i] for i in idx]
+        idx = self.in_index
+        if not isinstance(idx, int):
+            idx = idx[0] if len(idx) == 1 else -1
+        return inputs[idx]
 
     def cls_seg(self, feat, generator=None):
         """Dropout2d (training only; its mask from ``generator``) and the

@@ -32,6 +32,7 @@ from .. import builder
 from ..backbones.unet_backbone import MultiheadAttention
 from ..bricks import BatchNorm
 from ..builder import SEGMENTORS
+from ..utils.maxvit_core import RelativeSelfAttention
 from .base import BaseSegmentor
 
 
@@ -65,8 +66,10 @@ class EncoderDecoder(BaseSegmentor):
     def init_weights(self, seed: int = 0):
         """Random weights from ``seed``, drawn on the CPU by one
         ``torch.Generator`` in module order (so every device gets the same
-        values): torch's default uniform bounds for convs and linears,
-        Xavier for the packed in_proj, identity BN."""
+        values): torch's default uniform bounds for convs, transposed convs
+        and linears, Xavier for the packed in_proj, a normal of std 0.02
+        cut at 2 std for the relative-position bias tables (flax's
+        ``truncated_normal(0.02)``), identity BN and LayerNorm."""
         g = torch.Generator().manual_seed(seed)
 
         def uniform_(p, bound):
@@ -74,7 +77,7 @@ class EncoderDecoder(BaseSegmentor):
 
         with torch.no_grad():
             for m in self.modules():
-                if isinstance(m, (nn.Conv2d, nn.Linear)):
+                if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                     bound = 1.0 / math.sqrt(m.weight[0].numel())
                     uniform_(m.weight, bound)
                     if m.bias is not None:
@@ -83,7 +86,12 @@ class EncoderDecoder(BaseSegmentor):
                     c3, c = m.in_proj_weight.shape
                     uniform_(m.in_proj_weight, math.sqrt(6.0 / (c + c3)))
                     m.in_proj_bias.zero_()
-                elif isinstance(m, BatchNorm):
+                elif isinstance(m, RelativeSelfAttention):
+                    t = m.relative_position_bias_table
+                    t.copy_(nn.init.trunc_normal_(
+                        torch.empty(t.shape), std=0.02, a=-0.04, b=0.04,
+                        generator=g))
+                elif isinstance(m, (BatchNorm, nn.LayerNorm)):
                     m.reset_parameters()
         return self
 
@@ -122,12 +130,13 @@ class EncoderDecoder(BaseSegmentor):
     def compute_losses(self, img, gt_semantic_seg, generator=None):
         """The loss dict of an NHWC image batch against its labels
         ((N, H, W), or (N, H, W, 1) / (N, 1, H, W), which are squeezed), in
-        the module's current mode. ``generator`` draws the dropout masks."""
+        the module's current mode. ``generator`` draws every random mask
+        and seed of the backbone and the head."""
         img = self._as_input(img)
         gt = torch.as_tensor(gt_semantic_seg).to(self.device)
         if gt.ndim == 4:
             gt = gt[..., 0] if gt.shape[-1] == 1 else gt[:, 0]
-        feats = self.backbone(img.permute(0, 3, 1, 2))
+        feats = self.backbone(img.permute(0, 3, 1, 2), generator)
         logits = self.decode_head(feats, generator)
         return add_prefix(self.decode_head.loss_by_feat(
             logits.permute(0, 2, 3, 1), gt), 'decode')

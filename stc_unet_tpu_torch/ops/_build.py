@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` becomes
 checkout: a shared library with a plain C interface, compiled by ``nvcc``
 for ``sm_90a`` and loaded with ``ctypes``. The hash
 covers the sources and the flags, so an edit rebuilds. All sources are
-compiled at once, one ``nvcc`` each, in parallel.
+compiled at once, one ``nvcc`` each, in parallel. ``load_kernels`` gives
+a wrapper its library with the C signature of each entry point set, and
+``stream_ptr``/``check_launch`` are the two sides of every launch.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -17,13 +19,18 @@ import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR.parent / 'build' / 'stc_unet_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
+
+# ctypes argument types of the entry points: pointers (tensors and the
+# stream), int, unsigned int and float
+PTR, INT, UINT, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                         ctypes.c_float)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -87,3 +94,28 @@ def load_library(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(str(build_all([name])[name]['path']))
     return _LIBS[name]
+
+
+def load_kernels(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """``load_library(name)`` with the argument types of each entry point
+    in ``signatures`` ({C name: [ctypes types]}) set; every entry point
+    returns a ``cudaError_t`` as an int."""
+    lib = load_library(name)
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = INT
+    return lib
+
+
+def stream_ptr(t) -> ctypes.c_void_p:
+    """PyTorch's current stream on the device of tensor t, for a launch."""
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise if an entry point returned a CUDA error: a refused launch never
+    runs, and nothing else would report it."""
+    if err != 0:
+        raise RuntimeError(f'{what}: CUDA error {err} at launch')

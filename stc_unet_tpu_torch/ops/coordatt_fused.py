@@ -32,11 +32,9 @@ always goes through these wrappers: on the card they are the eval path.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ._build import load_library
+from ._build import INT, PTR, check_launch, load_kernels, stream_ptr
 
 __all__ = ['strip_pools', 'gate_add', 'gate_dots', 'strip_pools_reference',
            'gate_add_reference', 'gate_dots_reference']
@@ -46,29 +44,17 @@ _POOL_BAND_ROWS = 64   # rows per block of K1's and K2b's first pass (kPoolBand)
 _lib = None
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    'stc_strip_pools': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    'stc_gate_add': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    'stc_gate_dots': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    'stc_strip_pools': [PTR] * 4 + [INT] * 6 + [PTR],
+    'stc_gate_add': [PTR] * 4 + [INT] * 6 + [PTR],
+    'stc_gate_dots': [PTR] * 6 + [INT] * 6 + [PTR],
 }
-
-
-def bind(lib: ctypes.CDLL, names=tuple(_SIGNATURES)) -> ctypes.CDLL:
-    """Set the C signatures of the named kernels of a library built from
-    ``csrc/coordatt_fused.cu`` (or an older version of it, which may lack
-    some); returns lib."""
-    for name in names:
-        fn = getattr(lib, name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = _I
-    return lib
 
 
 def _kernels():
     global _lib
     if _lib is None:
-        _lib = bind(load_library('coordatt_fused'))
+        _lib = load_kernels('coordatt_fused', _SIGNATURES)
     return _lib
 
 
@@ -95,15 +81,6 @@ def _check_x(x):
         raise ValueError(f'unsupported shape {tuple(x.shape)}')
 
 
-def _raise_on(err, what):
-    if err != 0:
-        raise RuntimeError(f'{what}: CUDA error {err} at launch')
-
-
-def _stream(x):
-    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-
-
 # ---------------------------------------------------------------------------
 # K1: strip_pools
 # ---------------------------------------------------------------------------
@@ -126,19 +103,17 @@ def _strip_outputs(x):
     return rows, cols, bands, scratch
 
 
-def _strip_pools_kernel(x, lib=None):
-    """K1 on x; ``lib`` (default: this checkout's build) is a bound
-    library of another ``coordatt_fused.cu`` when two are compared."""
+def _strip_pools_kernel(x):
     _check_x(x)
-    lib = lib or _kernels()
+    lib = _kernels()
     n, h, w, c = x.shape
     sum_w, sum_h, bands, scratch = _strip_outputs(x)
     with torch.cuda.device(x.device):
         err = lib.stc_strip_pools(x.data_ptr(), sum_w.data_ptr(),
                                   sum_h.data_ptr(), scratch.data_ptr(),
                                   _DTYPES[x.dtype], bands, n, h, w, c,
-                                  _stream(x))
-    _raise_on(err, 'strip_pools')
+                                  stream_ptr(x))
+    check_launch(err, 'strip_pools')
     strip_pools.launches += 1
     return sum_w, sum_h
 
@@ -193,8 +168,8 @@ def _gate_add_kernel(x, a_h, a_w):
     with torch.cuda.device(x.device):
         err = lib.stc_gate_add(x.data_ptr(), a_h.data_ptr(), a_w.data_ptr(),
                                out.data_ptr(), _DTYPES[x.dtype], vec, n, h,
-                               w, c, _stream(x))
-    _raise_on(err, 'gate_add')
+                               w, c, stream_ptr(x))
+    check_launch(err, 'gate_add')
     gate_add.launches += 1
     return out
 
@@ -249,8 +224,8 @@ def _gate_dots_kernel(do, a_h, a_w):
         err = lib.stc_gate_dots(do.data_ptr(), a_h.data_ptr(), a_w.data_ptr(),
                                 dh.data_ptr(), dw.data_ptr(),
                                 scratch.data_ptr(), _DTYPES[do.dtype], bands,
-                                n, h, w, c, _stream(do))
-    _raise_on(err, 'gate_dots')
+                                n, h, w, c, stream_ptr(do))
+    check_launch(err, 'gate_dots')
     gate_dots.launches += 1
     return dh, dw
 

@@ -6,15 +6,27 @@ neither jax nor the JAX package: the caller hands in the
 ``{'params', 'batch_stats'}`` trees as nested dicts of numpy arrays.
 
 - conv ``kernel`` HWIO → ``weight`` OIHW;
-- linear ``kernel`` (in, out) → ``weight`` (out, in);
-- BN ``scale`` → ``weight``; ``mean``/``var`` → ``running_mean``/
-  ``running_var`` (plus a zero ``num_batches_tracked``, so the result
-  loads with ``strict=True``);
-- the packed ``in_proj_weight``/``in_proj_bias`` of the MHA kept verbatim.
+- linear ``kernel`` (in, out) → ``weight`` (out, in), under a ``linear``
+  brick or a bare ``nn.Dense`` (``.../qkv_mapping/kernel``);
+- a bare ``nn.ConvTranspose`` ``kernel`` (kh, kw, in, out) → ``weight``
+  (in, out, kh, kw) flipped in both spatial axes. flax's ``ConvTranspose``
+  (``transpose_kernel=False``) does not flip its kernel, and torch's
+  ``ConvTranspose2d``, the adjoint of a cross-correlation, does; without
+  the flip every shape matches and the output is wrong;
+- BN and LayerNorm ``scale`` → ``weight``; ``mean``/``var`` →
+  ``running_mean``/``running_var`` (plus a zero ``num_batches_tracked``,
+  so the result loads with ``strict=True``);
+- the packed ``in_proj_weight``/``in_proj_bias`` of the MHA and the
+  ``relative_position_bias_table`` kept verbatim;
+- flax names that stand for a sequence index (``stem_0``, ``stages_1``,
+  ``blocks_0``) become that index (``stem.0``, ``stages.1``, ``blocks.0``).
 
-The keys are the reference fork's (``backbone.inc.conv.conv.0.weight``,
-``decode_head.up1.ca.conv1.weight``, ...), i.e. the layout of the port's
-modules and of the fork's ``.pth`` checkpoints.
+The STC-UNet keys are the reference fork's
+(``backbone.inc.conv.conv.0.weight``, ``decode_head.up1.ca.conv1.weight``,
+...), i.e. the layout of the port's modules and of the fork's ``.pth``
+checkpoints. The MaxViT-UNet keys follow the flax names
+(``backbone.stages.0.blocks.0.block_transformer.attention.qkv_mapping.
+weight``): the fork's MaxViT module layout is not in the repo.
 """
 from __future__ import annotations
 
@@ -41,6 +53,8 @@ _RULES = (
      lambda m: f'{m.group(1)}.convs.{m.group(2)}.1'),
     (re.compile(r'\bfcs(\d)\b'), lambda m: f'fcs.{m.group(1)}'),
     (re.compile(r'\btr(\d)\b'), lambda m: f'tr.{m.group(1)}'),
+    (re.compile(r'\b(stem|stages|blocks)_(\d+)\b'),
+     lambda m: f'{m.group(1)}.{m.group(2)}'),
 )
 
 
@@ -48,7 +62,8 @@ def translate_path(path: Tuple[str, ...], collection: str = 'params'):
     """One flax leaf path → (torch key, transform tag).
 
     Tags: ``conv_w`` (HWIO→OIHW), ``linear_w`` ((in,out)→(out,in)),
-    ``verbatim``.
+    ``kernel`` (a bare flax kernel: a Dense's when 2-D, a ConvTranspose's
+    when 4-D), ``verbatim``.
     """
     leaf = path[-1]
     tag = 'verbatim'
@@ -62,9 +77,12 @@ def translate_path(path: Tuple[str, ...], collection: str = 'params'):
     elif collection == 'batch_stats':
         module = path[:-1]
         name = {'mean': 'running_mean', 'var': 'running_var'}[leaf]
+    elif leaf == 'kernel':
+        module, name, tag = path[:-1], 'weight', 'kernel'
     elif leaf == 'scale':
         module, name = path[:-1], 'weight'
-    elif leaf in ('bias', 'in_proj_weight', 'in_proj_bias'):
+    elif leaf in ('bias', 'in_proj_weight', 'in_proj_bias',
+                  'relative_position_bias_table'):
         module, name = path[:-1], leaf
     else:
         raise KeyError(f'cannot translate flax path {"/".join(path)}')
@@ -77,8 +95,12 @@ def translate_path(path: Tuple[str, ...], collection: str = 'params'):
 def _transform(value: np.ndarray, tag: str) -> np.ndarray:
     if tag == 'conv_w':
         return np.transpose(value, (3, 2, 0, 1))
-    if tag == 'linear_w':
+    if tag == 'linear_w' or (tag == 'kernel' and value.ndim == 2):
         return np.transpose(value, (1, 0))
+    if tag == 'kernel' and value.ndim == 4:
+        return np.transpose(value[::-1, ::-1], (2, 3, 0, 1))
+    if tag == 'kernel':
+        raise ValueError(f'a bare flax kernel of shape {value.shape}')
     return value
 
 

@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'stc_unet_tpu', 'mmseg',
              '__graft_entry__')
@@ -33,14 +35,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert not bad, bad
 
 
-def test_port_runs_without_jax():
-    code = '''
-import sys
-for name in ('jax', 'jaxlib', 'flax', 'stc_unet_tpu'):
-    sys.modules[name] = None
-import numpy as np
-from stc_unet_tpu_torch.models import build_segmentor
-from stc_unet_tpu_torch.ops import coordatt_fused
+_STC_UNET = '''
 cfg = dict(
     type='EncoderDecoder',
     backbone=dict(type='UnetBackbone', in_channels=3,
@@ -49,13 +44,46 @@ cfg = dict(
     decode_head=dict(type='UnetHead', se=True, num_classes=2, channels=8,
                      decoder_channel=[32, 32, 32, 32, 8]),
     test_cfg=dict(mode='slide', crop_size=(16, 16), stride=(8, 8)))
+size = 32
+'''
+_MAXVIT_UNET = '''
+cfg = dict(
+    type='EncoderDecoder',
+    backbone=dict(type='MaxViT', in_channels=3, depths=(1, 1, 1, 1),
+                  channels=(8, 8, 8, 8), embed_dim=8, num_heads=2,
+                  grid_window_size=(2, 2), attn_drop=0.1, drop=0.1,
+                  drop_path=0.1, mlp_ratio=2),
+    decode_head=dict(type='MaxViTDecoder', in_channels=[8, 8, 8, 8],
+                     output_size=(32, 32), num_heads=2,
+                     grid_window_size=(2, 2), depths=(1, 1, 1), channels=8,
+                     num_classes=2, mlp_ratio=2.0),
+    test_cfg=dict(mode='whole'))
+size = 64
+'''
+
+
+@pytest.mark.parametrize('model', [_STC_UNET, _MAXVIT_UNET],
+                         ids=['stc_unet', 'maxvit_unet'])
+def test_port_runs_without_jax(model):
+    """A tiny STC-UNet (slide) and a tiny MaxViT-UNet (whole) serve a
+    request in a process where jax, flax and the JAX package cannot be
+    imported; on the CPU no kernel is launched."""
+    code = '''
+import sys
+for name in ('jax', 'jaxlib', 'flax', 'stc_unet_tpu'):
+    sys.modules[name] = None
+import numpy as np
+from stc_unet_tpu_torch.models import build_segmentor
+from stc_unet_tpu_torch.ops import coordatt_fused, window_attention
+''' + model + '''
 model = build_segmentor(cfg).init_weights(seed=0)
-img = np.random.RandomState(0).rand(1, 32, 32, 3).astype(np.float32)
-metas = [dict(ori_shape=(32, 32, 3), img_shape=(32, 32, 3),
-              pad_shape=(32, 32, 3), flip=False)]
+img = np.random.RandomState(0).rand(1, size, size, 3).astype(np.float32)
+metas = [dict(ori_shape=(size, size, 3), img_shape=(size, size, 3),
+              pad_shape=(size, size, 3), flip=False)]
 pred = model(return_loss=False, img=[img], img_metas=[metas])
-assert pred[0].shape == (32, 32)
+assert pred[0].shape == (size, size)
 assert coordatt_fused.strip_pools.launches == 0
+assert window_attention.window_attention.launches == 0
 assert not any(m == 'jax' or m.startswith(('jax.', 'flax'))
                for m in sys.modules if sys.modules[m] is not None)
 print('ok')

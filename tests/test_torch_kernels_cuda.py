@@ -9,12 +9,18 @@ package, so it runs on a machine that has only PyTorch:
 Tolerances: K1's and K2b's f32 sums are taken in another order than
 ``torch.sum`` (rtol 1e-5, atol 1e-4) and are bit-identical from run to
 run; K2 rounds as the plain version does (f32 rtol/atol 1e-6, bf16
-exact).
+exact). K3f and K3b (window attention) sum in another order than the
+plain version: f32 rtol 1e-4 and atol 1e-5 of the largest value; in bf16
+an attention weight or a ds entry may round to the other neighbour, so
+rtol 2^-7 and atol 2^-7 of the largest value (dbias stays f32). At rate
+0.1 both draw the same Philox mask, so the rate-0 limits hold; K3b's
+reruns are bit-identical.
 """
 import pytest
 import torch
 
 from stc_unet_tpu_torch.ops import coordatt_fused as tfused
+from stc_unet_tpu_torch.ops import window_attention as twa
 
 SHAPES = [(2, 8, 16, 24), (1, 16, 8, 128), (3, 4, 4, 8), (3, 37, 53, 24)]
 
@@ -113,3 +119,47 @@ def test_gate_add_backward_launches_gate_dots(cuda_device, dtype):
            else dict(rtol=2 ** -7, atol=1e-4))
     torch.testing.assert_close(leaves[1].grad, eh.to(dtype), **tol)
     torch.testing.assert_close(leaves[2].grad, ew.to(dtype), **tol)
+
+
+def _close(got, want, dtype, f32_exact=False):
+    top = want.float().abs().max().item()
+    tol = (dict(rtol=1e-4, atol=1e-5 * top)
+           if dtype == torch.float32 or f32_exact
+           else dict(rtol=2 ** -7, atol=2 ** -7 * top))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('w,n,c,heads,rate', [
+    (2048, 64, 64, 32, 0.0), (32, 64, 512, 32, 0.0), (16, 64, 64, 32, 0.1),
+    (100, 16, 16, 2, 0.1), (67, 49, 16, 4, 0.0)])
+def test_window_attention_matches_plain_versions_on_card(
+        cuda_device, dtype, w, n, c, heads, rate):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    qkv = torch.randn((w, n, 3 * c), generator=g,
+                      device=cuda_device).to(dtype)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    bias_e = 0.1 * torch.randn((n, heads * n), generator=g,
+                               device=cuda_device)
+    seed = torch.randint(2 ** 62, (1,), generator=g, device=cuda_device)
+    do = torch.randn((w, n, c), generator=g, device=cuda_device).to(dtype)
+    scale = heads ** -0.5
+    before = (twa.window_attention.launches,
+              twa.window_attention_backward.launches)
+    out = twa.window_attention(q, k, v, bias_e, seed, heads, scale, rate)
+    grads = twa.window_attention_backward(q, k, v, bias_e, seed, do, heads,
+                                          scale, rate)
+    again = twa.window_attention_backward(q, k, v, bias_e, seed, do, heads,
+                                          scale, rate)
+    assert (twa.window_attention.launches,
+            twa.window_attention_backward.launches) == (before[0] + 1,
+                                                        before[1] + 2)
+    assert out.dtype == dtype and grads[3].dtype == torch.float32
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    _close(out, twa.window_attention_reference(q, k, v, bias_e, seed, heads,
+                                               scale, rate), dtype)
+    refs = twa.window_attention_backward_reference(q, k, v, bias_e, seed, do,
+                                                   heads, scale, rate)
+    for i, (got, want) in enumerate(zip(grads, refs)):
+        _close(got, want, dtype, f32_exact=i == 3)
