@@ -52,7 +52,26 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
    on the CPU as in 6, at 256² with one block per stage
    (``maxvit_train_check``); and trains as in 7 at torch's defaults with
    the config's dropout, each step launching K3f and K3b 28 times
-   (``maxvit_train``).
+   (``maxvit_train``);
+9. holds the flash-attention kernels Lf, Ldkv and Ldq against their plain
+   versions at the STC transformer's shapes (2 heads of 256 at x4 and x5
+   of slide B=14, whole B=8 and bs 1) and at odd shapes, with
+   bit-identical reruns and the autograd Function
+   (``flash_attention_kernels``); serves STC-UNet with
+   ``backbone.flash_attention=True`` and the einsum model's weights as in
+   4, 8 Lf launches per forward, its logits held to the flash model on the
+   CPU and to the einsum model on the card (``flash_slice``); times it as
+   in 5 at torch's defaults beside the einsum rows of the same run
+   (``flash_timing``); times Lf, Ldkv and Ldq at one forward's or one
+   step's eight calls beside their plain versions, the
+   ``scaled_dot_product_attention`` yardstick and their bounds
+   (``flash_attention_timing``); and checks and trains it as in 6 and 7
+   (``flash_train_check``, ``flash_train``: 8 Lf, 8 Ldkv and 8 Ldq
+   launches per step);
+10. runs the CoordAtt strip-pool probe
+    (``stc_unet_tpu_torch/tools/probe_coordatt.py``): kernel P against its
+    plain version, then timed beside K1 and two ``torch.sum``
+    (``coordatt_probe``).
 
     python3 chip_smoke.py
 
@@ -65,6 +84,7 @@ Without CUDA, or outside a checkout of the repo, it exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import os
@@ -87,15 +107,28 @@ ODD = [(3, 37, 53, 24), (2, 19, 23, 13), (1, 130, 71, 40)]
 SLIDE = dict(mode='slide', crop_size=(256, 256), stride=(170, 170))
 CF_SOURCE = 'stc_unet_tpu_torch/csrc/coordatt_fused.cu'
 WA_SOURCE = 'stc_unet_tpu_torch/csrc/window_attention.cu'
+FA_SOURCE = 'stc_unet_tpu_torch/csrc/flash_attention.cu'
+DP_SOURCE = 'stc_unet_tpu_torch/csrc/dual_pools.cu'
+# L: the JAX model's flash call, and the library kernel (jax 0.9.0) it reaches
+_FLASH = ('stc_unet_tpu/models/backbones/unet_backbone.py:146 -> '
+          'jax/experimental/pallas/ops/tpu/flash_attention.py')
 REPLACES = {'strip_pools': 'stc_unet_tpu/ops/coordatt_fused.py:94',
             'gate_add': 'stc_unet_tpu/ops/coordatt_fused.py:150',
             'gate_dots': 'stc_unet_tpu/ops/coordatt_fused.py:186',
             'window_attention': 'stc_unet_tpu/ops/window_attention.py:244',
             'window_attention_backward':
-                'stc_unet_tpu/ops/window_attention.py:264'}
+                'stc_unet_tpu/ops/window_attention.py:264',
+            'flash_attention_forward': f'{_FLASH}:758',
+            'flash_attention_bwd_dkv': f'{_FLASH}:1121',
+            'flash_attention_bwd_dq': f'{_FLASH}:1456',
+            'dual_pools': 'tools/probe_coordatt.py:100'}
 KERNELS = tuple(REPLACES)
 CF_KERNELS = KERNELS[:3]     # K1, K2, K2b in ops/coordatt_fused.py
-WA_KERNELS = KERNELS[3:]     # K3f, K3b in ops/window_attention.py
+WA_KERNELS = KERNELS[3:5]    # K3f, K3b in ops/window_attention.py
+FA_KERNELS = KERNELS[5:8]    # Lf, Ldkv, Ldq in ops/flash_attention.py
+SOURCES = dict(**dict.fromkeys(CF_KERNELS, CF_SOURCE),
+               **dict.fromkeys(WA_KERNELS, WA_SOURCE),
+               **dict.fromkeys(FA_KERNELS, FA_SOURCE), dual_pools=DP_SOURCE)
 STC_CONFIG = 'my_config/STC-UNet.py'
 MAXVIT_CONFIG = 'my_config/MaxViT-UNet.py'
 # launches per forward (and per train step, which adds the backward)
@@ -103,6 +136,20 @@ STC_FORWARD = dict(strip_pools=4, gate_add=4)
 STC_STEP = dict(strip_pools=4, gate_add=4, gate_dots=4)
 MAXVIT_FORWARD = dict(window_attention=28)
 MAXVIT_STEP = dict(window_attention=28, window_attention_backward=28)
+FLASH_FORWARD = dict(STC_FORWARD, flash_attention_forward=8)
+FLASH_STEP = dict(STC_STEP, flash_attention_forward=8,
+                  flash_attention_bwd_dkv=8, flash_attention_bwd_dq=8)
+# The STC transformer's attention: 2 heads of d = 256, 4 calls at x4 and 4
+# at x5 per forward; (N, L) per scale for slide B=14 (126 tiles of 256²),
+# whole B=8 at 512² (and the B=8 train step) and whole bs 1
+FA_HEADS, FA_D, FA_CALLS = 2, 256, 4
+FA_SLIDE = [(126, 1024), (126, 256)]
+FA_WHOLE = [(8, 4096), (8, 1024)]
+FA_BS1 = [(1, 4096), (1, 1024)]
+# odd shapes (N, heads, Lq, Lk, d): L of 16, 100 and 1000, d of 8, 64, 100
+# and 256, Lq != Lk, no length a multiple of a tile
+FA_ODD = [(2, 2, 16, 16, 8), (2, 2, 100, 100, 64), (1, 2, 1000, 1000, 256),
+          (1, 3, 77, 1000, 8), (2, 1, 1000, 37, 256), (1, 2, 129, 200, 100)]
 # MaxViT's window attention at B=8, 512²: (windows W, tokens N, channels C,
 # calls per forward) per stage; 32 heads, 8x8 windows and grids; the /4,
 # /8 and /16 stages run in the encoder and the decoder
@@ -119,7 +166,7 @@ MAX_ITERS = 1000
 # its norm: f32 sums taken in another order differ by that much even where
 # a one-ulp nudge of the inputs moves the tensor less.
 GRAD_FLOOR = 1e-5
-NUDGE_SEEDS = (7, 8, 9, 10)
+NUDGE_SEEDS = tuple(range(7, 15))
 
 
 def emit(phase, **fields):
@@ -439,11 +486,239 @@ def phase_window_attention_timing(torch, wa, err):
     return per
 
 
+def fa_inputs(torch, n, h, lq, lk, d, seed):
+    """q, k, v, do (N, heads, L, d) f32. Where Lq == Lk they are laid out
+    as the model gives them: views of (N, L, heads·d) rows."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    if lq != lk:
+        return (torch.randn((n, h, lq, d), generator=g, device='cuda'),
+                torch.randn((n, h, lk, d), generator=g, device='cuda'),
+                torch.randn((n, h, lk, d), generator=g, device='cuda'),
+                torch.randn((n, h, lq, d), generator=g, device='cuda'))
+    return tuple(torch.randn((n, lq, h * d), generator=g, device='cuda')
+                 .reshape(n, lq, h, d).transpose(1, 2) for _ in range(4))
+
+
+def fa_close(torch, got, want, what):
+    """f32 sums in another order and an online softmax: rtol 1e-4, atol
+    1e-5 of the largest value. The max abs error."""
+    top = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * top,
+                               msg=lambda m: f'{what}: {m}')
+    return (got - want).abs().max().item()
+
+
+def check_flash(torch, fa, q, k, v, do, scale):
+    """Lf, Ldkv and Ldq on q, k, v, do against their plain versions, each
+    rerun bit-identical; the autograd Function one launch of each with the
+    same outputs. Returns the three max abs errors (Lf: o and lse)."""
+    shape = tuple(q.shape[:3]) + (k.shape[2], q.shape[3])
+    o, lse = fa.flash_attention_forward(q, k, v, scale)
+    o2, lse2 = fa.flash_attention_forward(q, k, v, scale)
+    di = (o * do).sum(-1)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, di, scale)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, lse, do, di, scale)
+    dq = fa.flash_attention_bwd_dq(q, k, v, lse, do, di, scale)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, lse, do, di, scale)
+    for name, a, b in (('o', o, o2), ('lse', lse, lse2), ('dk', dk, dk2),
+                       ('dv', dv, dv2), ('dq', dq, dq2)):
+        if not torch.equal(a, b):
+            raise AssertionError(f'flash attention {name} not deterministic '
+                                 f'{shape}')
+    ro, rlse = fa.flash_attention_reference(q, k, v, scale)
+    e_fwd = max(fa_close(torch, o, ro, f'o {shape}'),
+                fa_close(torch, lse, rlse, f'lse {shape}'))
+    rdi = (ro * do).sum(-1)
+    rdk, rdv = fa.flash_attention_bwd_dkv_reference(q, k, v, rlse, do, rdi,
+                                                    scale)
+    e_dkv = max(fa_close(torch, dk, rdk, f'dk {shape}'),
+                fa_close(torch, dv, rdv, f'dv {shape}'))
+    del rdk, rdv
+    e_dq = fa_close(torch, dq, fa.flash_attention_bwd_dq_reference(
+        q, k, v, rlse, do, rdi, scale), f'dq {shape}')
+    del ro, rlse, rdi
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    before = [getattr(fa, name).launches for name in FA_KERNELS]
+    out = fa.flash_attention(*leaves, sm_scale=scale)
+    out.backward(do)
+    if [getattr(fa, name).launches - b for name, b in
+            zip(FA_KERNELS, before)] != [1, 1, 1] or \
+            not torch.equal(out, o) or not all(
+                torch.equal(leaf.grad, g)
+                for leaf, g in zip(leaves, (dq, dk, dv))):
+        raise AssertionError(f'flash_attention autograd {shape}: not one '
+                             'launch of each kernel with their outputs')
+    return e_fwd, e_dkv, e_dq
+
+
+def phase_flash_attention_kernels(torch, fa):
+    """Lf, Ldkv and Ldq against their plain versions on the card, f32: at
+    the STC transformer's shapes (x4 and x5 of slide B=14, whole B=8 and
+    bs 1) and at odd shapes."""
+    err = dict.fromkeys(FA_KERNELS, 0.0)
+    checked = []
+    cases = [(n, FA_HEADS, l, l, FA_D) for n, l in
+             FA_SLIDE + FA_WHOLE + FA_BS1] + FA_ODD
+    for i, (n, h, lq, lk, d) in enumerate(cases):
+        q, k, v, do = fa_inputs(torch, n, h, lq, lk, d, 300 + i)
+        errs = check_flash(torch, fa, q, k, v, do, d ** -0.5)
+        for name, e in zip(FA_KERNELS, errs):
+            err[name] = max(err[name], e)
+        checked.append(dict(shape=[n, h, lq, lk, d],
+                            **{f'{name}_err': e
+                               for name, e in zip(FA_KERNELS, errs)}))
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    emit('flash_attention_kernels', ok=True, checked=checked,
+         shape='(N, heads, Lq, Lk, d), float32',
+         tolerance='rtol 1e-4, atol 1e-5 of the largest value (o, lse, dq, '
+                   'dk, dv); every rerun bit-identical; the autograd '
+                   'Function one launch of each kernel with their outputs')
+    return err
+
+
+def flash_rows(torch, fa, n, length, calls, seed, backward, err):
+    """Lf (and with ``backward`` Ldkv and Ldq) at one scale of the STC
+    transformer: each beside its plain version, the library yardstick
+    (``F.scaled_dot_product_attention`` on the same f32 tensors, and its
+    autograd backward, which gives dq, dk and dv at once) and its bound;
+    each held against its plain version there, the errors folded into
+    err. Also the backend SDPA picks for these inputs."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    h, d = FA_HEADS, FA_D
+    scale = d ** -0.5
+    q, k, v, do = fa_inputs(torch, n, h, length, length, d, seed)
+    for name, e in zip(FA_KERNELS, check_flash(torch, fa, q, k, v, do,
+                                               scale)):
+        err[name] = max(err[name], e)
+    tensor = n * h * length * d * 4          # bytes of one (N, H, L, d) f32
+    row = n * h * length * 4                 # of lse or di
+    product = 2 * n * h * length * length * d
+    exps = n * h * length * length
+    fwd = dict(
+        ms=event_ms(torch, lambda: fa.flash_attention_forward(q, k, v,
+                                                              scale)),
+        plain_ms=event_ms(torch, lambda: fa.flash_attention_reference(
+            q, k, v, scale), iters=3),
+        library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale)),
+        bytes=4 * tensor + row, flops=2 * product, exps=exps)
+    sdpa = SDPBackend(torch._fused_sdp_choice(q, k, v, scale=scale)).name
+    rows = {'flash_attention_forward': fwd}
+    if backward:
+        o, lse = fa.flash_attention_forward(q, k, v, scale)
+        di = (o * do).sum(-1)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        sdpa_bwd_ms = event_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True))
+        rows['flash_attention_bwd_dkv'] = dict(
+            ms=event_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, lse, do, di, scale)),
+            plain_ms=event_ms(
+                torch, lambda: fa.flash_attention_bwd_dkv_reference(
+                    q, k, v, lse, do, di, scale), iters=3),
+            library_ms=sdpa_bwd_ms,
+            bytes=6 * tensor + 2 * row, flops=4 * product, exps=exps)
+        rows['flash_attention_bwd_dq'] = dict(
+            ms=event_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                q, k, v, lse, do, di, scale)),
+            plain_ms=event_ms(
+                torch, lambda: fa.flash_attention_bwd_dq_reference(
+                    q, k, v, lse, do, di, scale), iters=3),
+            library_ms=sdpa_bwd_ms,
+            bytes=5 * tensor + 2 * row, flops=3 * product, exps=exps)
+        del o, lse, di, leaves, out
+    for name, r in rows.items():
+        r.update(shape=[n, h, length, d], calls=calls)
+        bound(r)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return rows, sdpa
+
+
+def phase_flash_attention_timing(torch, fa, err):
+    """Lf at one forward's eight calls (4 at x4, 4 at x5) of slide B=14
+    and of whole B=8; Ldkv and Ldq at one B=8 train step's eight calls;
+    f32 at the model's shapes and strides. Returns the whole B=8 rows per
+    kernel (the kernels line's), the slide rows in the phase line."""
+    per = {name: [] for name in FA_KERNELS}
+    slide, sdpa = [], {}
+    for i, (n, length) in enumerate(FA_SLIDE):
+        rows, sdpa[f'slide L={length}'] = flash_rows(
+            torch, fa, n, length, FA_CALLS, 400 + i, False, err)
+        slide.append(rows['flash_attention_forward'])
+    for i, (n, length) in enumerate(FA_WHOLE):
+        rows, sdpa[f'whole L={length}'] = flash_rows(
+            torch, fa, n, length, FA_CALLS, 410 + i, True, err)
+        for name, r in rows.items():
+            per[name].append(r)
+
+    def total(rows, key):
+        return sum(r['calls'] * r[key] for r in rows)
+
+    keys = ('ms', 'plain_ms', 'bound_ms', 'library_ms')
+    emit('flash_attention_timing', dtype='float32', heads=FA_HEADS, d=FA_D,
+         sdpa_backend=sdpa,
+         library=dict(
+             flash_attention_forward='F.scaled_dot_product_attention(q, k, '
+                                     'v, scale=sm_scale), f32',
+             backward='torch.autograd.grad of it to q, k and v: dq, dk and '
+                      'dv in one call, beside Ldkv and beside Ldq'),
+         bound='largest of bytes / 3.35 TB/s, exponentials / 4.2e12 per s, '
+               'dot-product flops / 67 TFLOP/s (f32; Lf 2 products, Ldkv 4, '
+               'Ldq 3)',
+         slide_b14_forward=dict(rows=slide, **{
+             f'total_{k}': total(slide, k) for k in keys}),
+         whole_b8=dict(rows=per, **{
+             f'{name}_total_{k}': total(per[name], k)
+             for name in FA_KERNELS for k in keys}))
+    return per
+
+
+def phase_coordatt_probe(torch, kern):
+    """Kernel P against its plain version at the probe's four B=14 bf16
+    stages and at odd shapes (f32 and bf16; rtol 1e-5, atol 1e-4, as K1;
+    reruns bit-identical), then the probe itself
+    (``stc_unet_tpu_torch/tools/probe_coordatt.py``): P, K1 and two
+    ``torch.sum`` timed at those stages. Returns P's rows, its launches in
+    the probe and its max abs error."""
+    from stc_unet_tpu_torch.tools.probe_coordatt import STAGES as PROBE
+    from stc_unet_tpu_torch.tools.probe_coordatt import check_dual_pools, probe
+    err = 0.0
+    shapes = [((14, hw, hw, c), torch.bfloat16) for hw, c in PROBE]
+    shapes += [(s, dt) for s in ODD for dt in (torch.float32,
+                                               torch.bfloat16)]
+    for i, (shape, dtype) in enumerate(shapes):
+        err = max(err, check_dual_pools(gates(torch, shape, dtype,
+                                               500 + i)[0]))
+    torch.cuda.empty_cache()
+    reset_counts(kern)
+    rec = probe(check=False)
+    launches = read_counts(kern)
+    if not launches['dual_pools'] or any(
+            v for k, v in launches.items()
+            if k not in ('dual_pools', 'strip_pools')):
+        raise AssertionError(f'probe launches {launches}')
+    rows = [bound(dict(ms=st['dual_pools_ms'], plain_ms=st['torch_sums_ms'],
+                       library_ms=st['torch_sums_ms'], bytes=st['bytes'],
+                       flops=st['flops'],
+                       shape=[st['batch'], st['hw'], st['hw'], st['c']]))
+            for st in rec['stages']]
+    emit('coordatt_probe', ok=True, launches=launches, max_abs_err=err,
+         tolerance='rtol 1e-5 atol 1e-4 against two f32 torch.sum; reruns '
+                   'bit-identical', **rec)
+    return rows, launches['dual_pools'], err
+
+
 def phase_slice(torch, kern, model, cpu_model_fn, config, modes, expected,
-                phase='slice'):
+                phase='slice', card_model=None):
     """Serve requests in each of ``modes`` (B=2 at 512², bf16 images);
     check each forward's launches against ``expected``; hold the card's
-    logits against the port on the CPU. Returns the launches."""
+    logits against the port on the CPU (f32, TF32 off) and, when
+    ``card_model`` is given, against that model's on the card. Returns
+    the launches."""
     g = torch.Generator(device='cuda').manual_seed(1)
     imgs = torch.rand((2, 512, 512, 3), generator=g,
                       device='cuda').to(torch.bfloat16)
@@ -478,33 +753,42 @@ def phase_slice(torch, kern, model, cpu_model_fn, config, modes, expected,
     x = torch.rand((1, 256, 256, 3),
                    generator=torch.Generator().manual_seed(2))
     on_card = model.encode_decode(x.cuda()).float().cpu()
-    on_cpu = cpu_model_fn().encode_decode(x)
-    max_err = (on_card - on_cpu).abs().max().item()
-    margin = on_cpu[..., 1] - on_cpu[..., 0]
-    margin_err = ((on_card[..., 1] - on_card[..., 0]) -
-                  margin).abs().max().item()
+    checks = dict(cpu_check=compare_logits(
+        torch, on_card, cpu_model_fn().encode_decode(x)))
+    if card_model is not None:
+        # and against another model on the card, from the same weights
+        checks['card_check'] = compare_logits(
+            torch, on_card, card_model.encode_decode(x.cuda()).float().cpu())
+    emit(phase, ok=True, config=config, served=served, **checks)
+    return launches
+
+
+def compare_logits(torch, got, want):
+    """got against want, (1, 256, 256, 2) f32 logits of one image in whole
+    mode: rtol/atol 1e-5, the class margin within 1e-3 of its spread, the
+    argmax agreeing on 0.999 of the pixels. Raises, or returns the
+    measures."""
+    max_err = (got - want).abs().max().item()
+    margin = want[..., 1] - want[..., 0]
+    margin_err = ((got[..., 1] - got[..., 0]) - margin).abs().max().item()
     margin_std = margin.std().item()
     # The seeded models' logits are small (STC-UNet: |max| ~0.2) and their
     # class margins spread ~1e-2, so the limits are set against those, not
     # against 1.
-    torch.testing.assert_close(on_card, on_cpu, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     if margin_err > 1e-3 * margin_std:
         raise AssertionError(f'class margin off by {margin_err}, over 1e-3 '
                              f'of its spread {margin_std}')
-    agree = (on_card.argmax(-1) == on_cpu.argmax(-1)).float().mean().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     if agree < 0.999:
         raise AssertionError(f'argmax agreement {agree} < 0.999')
-    emit(phase, ok=True, config=config, served=served,
-         cpu_check=dict(size=256, mode='whole', dtype='float32',
-                        max_abs_err=max_err, argmax_agreement=agree,
-                        logits_abs_max=on_cpu.abs().max().item(),
-                        margin_std=margin_std,
-                        margin_max_abs_err=margin_err,
-                        class1_share=(margin > 0).float().mean().item(),
-                        tolerance='logits rtol 1e-5 atol 1e-5; class '
-                                  'margin within 1e-3 of its std; argmax '
-                                  '>= 0.999'))
-    return launches
+    return dict(size=256, mode='whole', dtype='float32',
+                max_abs_err=max_err, argmax_agreement=agree,
+                logits_abs_max=want.abs().max().item(),
+                margin_std=margin_std, margin_max_abs_err=margin_err,
+                class1_share=(margin > 0).float().mean().item(),
+                tolerance='logits rtol 1e-5 atol 1e-5; class margin within '
+                          '1e-3 of its std; argmax >= 0.999')
 
 
 def whole_and_p50(torch, model, img):
@@ -549,9 +833,14 @@ def phase_maxvit_timing(torch, model, tf32):
                'clock with synchronize, 20 calls')
 
 
-def phase_timing(torch, model, settings):
+def phase_timing(torch, model, settings, phase='timing', run='slide',
+                 profile_whole=False, beside=None):
     """bench.py's protocol: slide B=14, whole B=8, p50 at bs 1, bf16; one
-    row per TF32 setting ``(label, cudnn, matmul)``."""
+    row per TF32 setting ``(label, cudnn, matmul)``, each with the peak
+    memory of the slide and the whole runs and a profile of one slide
+    forward (and, with ``profile_whole``, of one whole B=8 and one bs-1
+    forward). ``beside`` (rows of another run of this phase) goes into the
+    line as it is."""
     g = torch.Generator(device='cuda').manual_seed(3)
     img = torch.rand((14, 512, 512, 3), generator=g,
                      device='cuda').to(torch.bfloat16)
@@ -563,21 +852,30 @@ def phase_timing(torch, model, settings):
         slide_ms = event_ms(torch, lambda: model.slide_inference(
             img, None, False), iters=5)
         peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         whole_ms, p50 = whole_and_p50(torch, model, img)
         rows.append(dict(
             tf32=label, cudnn_allow_tf32=cudnn, matmul_allow_tf32=matmul,
             slide_ms_b14=slide_ms, slide_slices_per_s=14e3 / slide_ms,
             slide_peak_mem_gb=peak / 1e9,
             whole_ms_b8=whole_ms, whole_slices_per_s=8e3 / whole_ms,
+            whole_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
             p50_ms_bs1=p50))
         model.test_cfg = dict(SLIDE)
-        emit('profile', run='slide', batch=img.shape[0], tf32=label,
+        emit('profile', run=run, batch=img.shape[0], tf32=label,
              **profile_run(torch, lambda: model.slide_inference(
                  img, None, False), slide_ms))
+        if profile_whole:
+            model.test_cfg = dict(mode='whole')
+            for batch, ms in ((8, whole_ms), (1, p50)):
+                emit('profile', run=f'{phase} whole', batch=batch,
+                     tf32=label, **profile_run(
+                         torch, lambda: model.whole_inference(
+                             img[:batch], None, False), ms))
     set_tf32(torch, False, False)
-    emit('timing', image='bf16 512x512', timer='CUDA events, median of 5 '
+    emit(phase, image='bf16 512x512', timer='CUDA events, median of 5 '
          'after 2 warmup; p50 on the host clock with synchronize, 20 calls',
-         rows=rows)
+         rows=rows, **({} if beside is None else dict(einsum_rows=beside)))
     return rows
 
 
@@ -742,14 +1040,16 @@ def phase_train_check(torch, cfg, init_segmentor, size, phase='train_check',
     moving the image and the weights by one f32 ulp moves it by about 1 %
     of its norm as a whole, and single deep tensors by a few percent. So
     the card's first-step gradient is held to the CPU's within 3 times
-    what the largest of four such one-ulp nudges does to the CPU's own
+    what the largest of eight such one-ulp nudges does to the CPU's own
     gradient (the yardstick, measured in the same run): as a whole against
     the whole's yardstick, and each tensor against its own (at least
     GRAD_FLOOR). A nudge moves nearly every tensor together, by an amount
     that varies several-fold from one nudge to the next, so two nudges are
-    too few to gauge it. The kernels themselves are held tightly in phases
-    ``kernels`` and ``window_attention_kernels``, their autograd
-    included."""
+    too few to gauge it, and four were too few for the flash model (one
+    of them moved its gradient by a third of what it moved the einsum
+    model's). The kernels themselves are held tightly in phases
+    ``kernels``, ``window_attention_kernels`` and
+    ``flash_attention_kernels``, their autograd included."""
     card = init_segmentor(cfg)
     cpu = init_segmentor(cfg, device='cpu')
     cpu_state = {k: v.cpu() for k, v in card.state_dict().items()}
@@ -924,6 +1224,8 @@ def _kernel_group(name):
     for group, keys in (
             ('coordatt K1/K2/K2b', ('strip_band', 'gate_add')),
             ('window attention K3f/K3b', ('wa_fwd', 'wa_bwd', 'wa_dbias')),
+            ('flash attention Lf/Ldkv/Ldq', ('flash_fwd', 'flash_bwd')),
+            ('dual pools P', ('dual_pools',)),
             ('optimizer', ('adam', 'multi_tensor')),
             ('conv (FFT)', ('fft', 'cf32')),
             ('conv', ('fprop', 'conv', 'implicit', 'nchwtonhwc',
@@ -984,8 +1286,12 @@ def main(argv=None):
     from stc_unet_tpu_torch.apis import init_segmentor
     from stc_unet_tpu_torch.ops import _build
     from stc_unet_tpu_torch.ops import coordatt_fused as cf
+    from stc_unet_tpu_torch.ops import dual_pools as dp
     from stc_unet_tpu_torch.ops import window_attention as wa
     from stc_unet_tpu_torch.utils import Config
+    # the package exports the function flash_attention under the module's
+    # name, so the module is taken by its full name
+    fa = importlib.import_module('stc_unet_tpu_torch.ops.flash_attention')
 
     # 1. env; torch's TF32 defaults are what init_segmentor's caller gets
     default_tf32 = (torch.backends.cudnn.allow_tf32,
@@ -1012,37 +1318,46 @@ def main(argv=None):
          built={k: v['built'] for k, v in libs.items()},
          ptxas=[ln.strip() for v in libs.values()
                 for ln in v['log'].splitlines()
-                if 'registers' in ln or 'spill' in ln][:80])
+                if 'registers' in ln or 'spill' in ln][:120])
 
     # 3. kernels against their plain versions
     err = phase_kernels(torch, cf)
     err.update(phase_window_attention_kernels(torch, wa))
-    kern = {name: getattr(cf if name in CF_KERNELS else wa, name)
-            for name in KERNELS}
+    err.update(phase_flash_attention_kernels(torch, fa))
+    modules = dict(**dict.fromkeys(CF_KERNELS, cf),
+                   **dict.fromkeys(WA_KERNELS, wa),
+                   **dict.fromkeys(FA_KERNELS, fa), dual_pools=dp)
+    kern = {name: getattr(modules[name], name) for name in KERNELS}
 
     # 4. the STC-UNet path
     cfg_path = os.path.join(REPO, STC_CONFIG)
-    model = init_segmentor(Config.fromfile(cfg_path))
 
-    def cpu_model(path, card):
+    def stc_cfg(flash=False):
+        cfg = Config.fromfile(cfg_path)
+        cfg.model.backbone.flash_attention = flash
+        return cfg
+
+    model = init_segmentor(stc_cfg())
+
+    def cpu_model(make_cfg, card):
         def build():
-            m = init_segmentor(Config.fromfile(path), device='cpu')
+            m = init_segmentor(make_cfg(), device='cpu')
             m.load_state_dict({k: v.cpu() for k, v in
                                card.state_dict().items()})
             return m
         return build
 
-    launches = phase_slice(torch, kern, model, cpu_model(cfg_path, model),
+    launches = phase_slice(torch, kern, model, cpu_model(stc_cfg, model),
                            STC_CONFIG, ('slide', 'whole'), STC_FORWARD)
 
     # 5. timing
-    phase_timing(torch, model, [('off', False, False),
-                                ('torch default',) + default_tf32,
-                                ('on', True, True)])
+    stc_rows = phase_timing(torch, model, [('off', False, False),
+                                           ('torch default',) + default_tf32,
+                                           ('on', True, True)])
     per = phase_kernel_timing(torch, cf, err)
 
     # 6. and 7. the train step
-    cfg = Config.fromfile(cfg_path)
+    cfg = stc_cfg()
     cfg.model.decode_head.dropout_ratio = 0.0
     phase_train_check(torch, cfg, init_segmentor, 64)
     trained = phase_train(torch, kern, model,
@@ -1051,13 +1366,39 @@ def main(argv=None):
                           STC_CONFIG, STC_STEP, 0.1)
     for name in KERNELS:
         launches[name] += trained[name]
+
+    # 9. the STC-UNet flash path, with the einsum model's weights
+    model.eval()
+    flash = init_segmentor(stc_cfg(True))
+    flash.load_state_dict(model.state_dict(), strict=True)
+    flash_config = f'{STC_CONFIG} with backbone.flash_attention=True'
+    served = phase_slice(torch, kern, flash,
+                         cpu_model(lambda: stc_cfg(True), flash),
+                         flash_config, ('slide', 'whole'), FLASH_FORWARD,
+                         phase='flash_slice', card_model=model)
     del model
+    torch.cuda.empty_cache()
+    phase_timing(torch, flash, [('torch default',) + default_tf32],
+                 phase='flash_timing', run='flash slide', profile_whole=True,
+                 beside=[r for r in stc_rows if r['tf32'] == 'torch default'])
+    per.update(phase_flash_attention_timing(torch, fa, err))
+    cfg = stc_cfg(True)
+    cfg.model.decode_head.dropout_ratio = 0.0
+    phase_train_check(torch, cfg, init_segmentor, 64,
+                      phase='flash_train_check', focus=('attention', '.ma.'))
+    trained = phase_train(torch, kern, flash,
+                          [('torch default',) + default_tf32], flash_config,
+                          FLASH_STEP, 0.1, phase='flash_train')
+    for name in KERNELS:
+        launches[name] += served[name] + trained[name]
+    del flash
     torch.cuda.empty_cache()
 
     # 8. the MaxViT-UNet path: whole inference, timing, the train step
     mv_path = os.path.join(REPO, MAXVIT_CONFIG)
     model = init_segmentor(Config.fromfile(mv_path))
-    served = phase_slice(torch, kern, model, cpu_model(mv_path, model),
+    served = phase_slice(torch, kern, model,
+                         cpu_model(lambda: Config.fromfile(mv_path), model),
                          MAXVIT_CONFIG, ('whole',), MAXVIT_FORWARD,
                          phase='maxvit_slice')
     phase_maxvit_timing(torch, model, ('torch default',) + default_tf32)
@@ -1080,15 +1421,19 @@ def main(argv=None):
     del model
     torch.cuda.empty_cache()
 
-    # the kernels of both paths: the times of one forward's (K1, K2, K3f)
-    # or one step's (K2b, K3b) launches at the timed shapes
+    # 10. the CoordAtt probe: kernel P
+    per['dual_pools'], launches['dual_pools'], err['dual_pools'] = \
+        phase_coordatt_probe(torch, kern)
+
+    # the kernels of every path: the times of one forward's (K1, K2, K3f,
+    # Lf) or one step's (K2b, K3b, Ldkv, Ldq) launches at the timed shapes;
+    # P's over the probe's four stages
     kernels = []
     for name in KERNELS:
         rows = per[name]
         calls = [r.get('calls', 1) for r in rows]
         kernels.append(dict(
-            name=name, route='cuda',
-            source=CF_SOURCE if name in CF_KERNELS else WA_SOURCE,
+            name=name, route='cuda', source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=err[name],
             **{key: sum(n * r[key] for n, r in zip(calls, rows))

@@ -21,6 +21,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
+from ...ops.flash_attention import flash_attention
 from ..bricks import BatchNorm, Conv2d, Linear
 from ..builder import BACKBONES
 
@@ -95,12 +96,17 @@ class KernelSelectAttention(nn.Module):
 
 class MultiheadAttention(nn.Module):
     """torch ``nn.MultiheadAttention`` parameters (packed in_proj +
-    out_proj), batch-first input (N, L, C); the einsum path of the JAX
-    module: ``softmax(q kᵀ / sqrt(hd)) v``."""
+    out_proj), batch-first input (N, L, C). The attention core is the JAX
+    module's einsum path, ``softmax(q kᵀ / sqrt(hd)) v``, or with
+    ``use_flash`` its flash path (JAX ``unet_backbone.py:141-150``): q, k, v
+    cast to f32, ``flash_attention`` (kernels Lf, Ldkv and Ldq on the card)
+    with ``sm_scale = 1 / sqrt(hd)`` multiplying the scores, and the result
+    cast back to the projections' dtype. The flag has no parameters."""
 
-    def __init__(self, embed_dim, num_heads):
+    def __init__(self, embed_dim, num_heads, use_flash=False):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.use_flash = use_flash
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim,
                                                        embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
@@ -122,10 +128,17 @@ class MultiheadAttention(nn.Module):
         q = q.reshape(n, lq, h, hd).transpose(1, 2)
         k = k.reshape(n, lk, h, hd).transpose(1, 2)
         v = v.reshape(n, lk, h, hd).transpose(1, 2)
-        # a divide by sqrt(hd) rounded to q's dtype, as the JAX module does
-        scale = torch.tensor(math.sqrt(hd), dtype=q.dtype).item()
-        att = torch.softmax(torch.matmul(q, k.transpose(-2, -1)) / scale, -1)
-        out = torch.matmul(att, v).transpose(1, 2).reshape(n, lq, c)
+        if self.use_flash:
+            out = flash_attention(q.float(), k.float(), v.float(),
+                                  sm_scale=1.0 / math.sqrt(hd)).to(q.dtype)
+        else:
+            # a divide by sqrt(hd) rounded to q's dtype, as the JAX module
+            # does
+            scale = torch.tensor(math.sqrt(hd), dtype=q.dtype).item()
+            att = torch.softmax(torch.matmul(q, k.transpose(-2, -1)) / scale,
+                                -1)
+            out = torch.matmul(att, v)
+        out = out.transpose(1, 2).reshape(n, lq, c)
         return self.out_proj(out)
 
 
@@ -133,12 +146,12 @@ class TransformerLayer(nn.Module):
     """ViT layer without LayerNorm; the fork applies bias-free q/k/v
     Linears before the MHA's own in_proj."""
 
-    def __init__(self, c, num_heads):
+    def __init__(self, c, num_heads, use_flash=False):
         super().__init__()
         self.q = Linear(c, c, bias=False)
         self.k = Linear(c, c, bias=False)
         self.v = Linear(c, c, bias=False)
-        self.ma = MultiheadAttention(c, num_heads)
+        self.ma = MultiheadAttention(c, num_heads, use_flash)
         self.fc1 = Linear(c, c, bias=False)
         self.fc2 = Linear(c, c, bias=False)
 
@@ -151,11 +164,11 @@ class TransformerBlock(nn.Module):
     """Tokenize HW → pos-embed Linear → N layers → un-tokenize (c1 ==
     c2 in the STC config, so the channel-matching conv is omitted)."""
 
-    def __init__(self, c2, num_heads, num_layers):
+    def __init__(self, c2, num_heads, num_layers, use_flash=False):
         super().__init__()
         self.c2 = c2
         self.linear = Linear(c2, c2)
-        self.tr = nn.ModuleList([TransformerLayer(c2, num_heads)
+        self.tr = nn.ModuleList([TransformerLayer(c2, num_heads, use_flash)
                                  for _ in range(num_layers)])
 
     def forward(self, x):
@@ -171,7 +184,8 @@ class TransformerBlock(nn.Module):
 @BACKBONES.register_module()
 class UnetBackbone(nn.Module):
     """5-scale U-Net encoder: channels [c0, c1, c2, c3, c3]; optional KSA
-    residuals on x1..x3 and transformer residuals at x4/x5."""
+    residuals on x1..x3 and transformer residuals at x4/x5, whose attention
+    takes the flash path with ``flash_attention``."""
 
     def __init__(self, in_channels: int = 3,
                  channel_list: Sequence[int] = (64, 128, 256, 512),
@@ -181,10 +195,6 @@ class UnetBackbone(nn.Module):
                  init_cfg: Optional[dict] = None,
                  pretrained: Optional[str] = None):
         super().__init__()
-        if flash_attention:
-            raise NotImplementedError(
-                'flash_attention=True needs the hand-written attention '
-                'kernel of a later slice (ROADMAP.md, kernel L)')
         cl = list(channel_list)
         self.context_layer = context_layer
         self.transformer_block = transformer_block
@@ -199,8 +209,8 @@ class UnetBackbone(nn.Module):
             self.context_layer2_1 = KernelSelectAttention(cl[1])
             self.context_layer3_1 = KernelSelectAttention(cl[2])
         if transformer_block:
-            self.aspp4 = TransformerBlock(cl[3], 2, 4)
-            self.aspp5 = TransformerBlock(cl[3], 2, 4)
+            self.aspp4 = TransformerBlock(cl[3], 2, 4, flash_attention)
+            self.aspp5 = TransformerBlock(cl[3], 2, 4, flash_attention)
 
     def forward(self, x, generator=None):
         """The 5 scales; the encoder draws nothing from ``generator``."""

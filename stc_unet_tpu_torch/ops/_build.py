@@ -7,7 +7,8 @@ for ``sm_90a`` and loaded with ``ctypes``. The hash
 covers the sources and the flags, so an edit rebuilds. All sources are
 compiled at once, one ``nvcc`` each, in parallel. ``load_kernels`` gives
 a wrapper its library with the C signature of each entry point set, and
-``stream_ptr``/``check_launch`` are the two sides of every launch.
+``stream_ptr``/``check_launch`` are the two sides of every launch;
+``device_type`` picks a wrapper's side.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -28,9 +29,9 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
 # ctypes argument types of the entry points: pointers (tensors and the
-# stream), int, unsigned int and float
-PTR, INT, UINT, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                         ctypes.c_float)
+# stream), int, unsigned int, float and 64-bit int (strides)
+PTR, INT, UINT, FLOAT, LONG = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                               ctypes.c_float, ctypes.c_longlong)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -106,6 +107,15 @@ def load_kernels(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = INT
     return lib
+
+
+def device_type(t, what: str) -> str:
+    """'cpu' or 'cuda', the device type of tensor t: a wrapper computes its
+    plain version on the CPU and launches its kernel on the card. Any
+    other device raises."""
+    if t.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{what}: no kernel for device {t.device}')
+    return t.device.type
 
 
 def stream_ptr(t) -> ctypes.c_void_p:

@@ -38,8 +38,8 @@ from __future__ import annotations
 
 import torch
 
-from ._build import (FLOAT, INT, PTR, UINT, check_launch, load_kernels,
-                     stream_ptr)
+from ._build import (FLOAT, INT, PTR, UINT, check_launch, device_type,
+                     load_kernels, stream_ptr)
 
 __all__ = ['window_attention', 'window_attention_backward',
            'window_attention_reference', 'window_attention_backward_reference',
@@ -331,11 +331,6 @@ class _WindowAttention(torch.autograd.Function):
         return dq, dk, dv, dbias.to(bias_e.dtype), None, None, None, None
 
 
-def _device_of(q, what):
-    if q.device.type not in ('cpu', 'cuda'):
-        raise ValueError(f'{what}: no kernel for device {q.device}')
-    return q.device.type
-
 
 def window_attention(q, k, v, bias_e, seed, heads: int, scale: float,
                      rate: float = 0.0):
@@ -346,7 +341,7 @@ def window_attention(q, k, v, bias_e, seed, heads: int, scale: float,
     int64 on the tensors' device (drawn only when ``rate > 0``); rate: the
     attention dropout. Differentiable in q, k, v and bias_e.
     """
-    _device_of(q, 'window_attention')
+    device_type(q, 'window_attention')
     return _WindowAttention.apply(q, k, v, bias_e, seed, heads, scale, rate)
 
 
@@ -358,7 +353,7 @@ def window_attention_backward(q, k, v, bias_e, seed, do, heads: int,
     """``(dq, dk, dv, dbias)`` of :func:`window_attention` for the output
     gradient do (W, N, C), recomputing the forward; dbias (N, heads·N) f32
     is summed over the windows."""
-    if _device_of(q, 'window_attention_backward') == 'cpu':
+    if device_type(q, 'window_attention_backward') == 'cpu':
         return window_attention_backward_reference(q, k, v, bias_e, seed, do,
                                                    heads, scale, rate)
     return _bwd_kernel(q, k, v, bias_e, seed, do, heads, scale, rate)

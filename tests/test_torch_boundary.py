@@ -46,6 +46,9 @@ cfg = dict(
     test_cfg=dict(mode='slide', crop_size=(16, 16), stride=(8, 8)))
 size = 32
 '''
+_STC_UNET_FLASH = _STC_UNET.replace('transformer_block=True,',
+                                    'transformer_block=True, '
+                                    'flash_attention=True,')
 _MAXVIT_UNET = '''
 cfg = dict(
     type='EncoderDecoder',
@@ -62,12 +65,13 @@ size = 64
 '''
 
 
-@pytest.mark.parametrize('model', [_STC_UNET, _MAXVIT_UNET],
-                         ids=['stc_unet', 'maxvit_unet'])
+@pytest.mark.parametrize('model', [_STC_UNET, _STC_UNET_FLASH, _MAXVIT_UNET],
+                         ids=['stc_unet', 'stc_unet_flash', 'maxvit_unet'])
 def test_port_runs_without_jax(model):
-    """A tiny STC-UNet (slide) and a tiny MaxViT-UNet (whole) serve a
-    request in a process where jax, flax and the JAX package cannot be
-    imported; on the CPU no kernel is launched."""
+    """A tiny STC-UNet (slide, with and without the flash path) and a
+    tiny MaxViT-UNet (whole) serve a request in a process where jax, flax
+    and the JAX package cannot be imported; on the CPU no kernel is
+    launched."""
     code = '''
 import sys
 for name in ('jax', 'jaxlib', 'flax', 'stc_unet_tpu'):
@@ -75,6 +79,7 @@ for name in ('jax', 'jaxlib', 'flax', 'stc_unet_tpu'):
 import numpy as np
 from stc_unet_tpu_torch.models import build_segmentor
 from stc_unet_tpu_torch.ops import coordatt_fused, window_attention
+from stc_unet_tpu_torch.ops.flash_attention import flash_attention_forward
 ''' + model + '''
 model = build_segmentor(cfg).init_weights(seed=0)
 img = np.random.RandomState(0).rand(1, size, size, 3).astype(np.float32)
@@ -84,6 +89,7 @@ pred = model(return_loss=False, img=[img], img_metas=[metas])
 assert pred[0].shape == (size, size)
 assert coordatt_fused.strip_pools.launches == 0
 assert window_attention.window_attention.launches == 0
+assert flash_attention_forward.launches == 0
 assert not any(m == 'jax' or m.startswith(('jax.', 'flax'))
                for m in sys.modules if sys.modules[m] is not None)
 print('ok')

@@ -1,0 +1,337 @@
+"""The port's flash attention (kernel L: ``ops/flash_attention.py``) and the
+STC transformer's flash path, against JAX on the CPU.
+
+The JAX side is the library's Pallas flash attention
+(``jax.experimental.pallas.ops.tpu.flash_attention``), run in interpret
+mode inside ``pltpu.force_tpu_interpret_mode()`` (on the CPU it refuses to
+run otherwise). Its default blocks are 128, so it takes only lengths that
+are multiples of 128; at other lengths the port's plain versions are held
+to an einsum softmax in JAX and its ``jax.vjp``. A flax model that
+holds the flash call is initialised outside the interpret context (the
+init traces the call too) with the flag off, which changes no parameter.
+On the CPU the port's wrappers compute their plain versions; the kernels
+are held to those on the card (``tests/test_torch_kernels_cuda.py``,
+``chip_smoke.py``).
+
+Inputs come from numpy with a seed. Tolerances, f32: rtol 1e-5 and atol
+1e-5 of the largest value for the attention core and its gradients (sums
+in another order); the modules as in ``tests/test_torch_stc_unet.py`` and
+``tests/test_torch_train_step.py``; bf16 flows to a few bf16 ulps (rtol and
+atol 2^-5), as ``test_mha_dtype_flow_matches_jax``.
+"""
+import functools
+import math
+import os.path as osp
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu import flash_attention as jfa
+
+from stc_unet_tpu.models.backbones.unet_backbone import \
+    MultiheadAttention as JMHA
+from stc_unet_tpu.models.backbones.unet_backbone import \
+    TransformerBlock as JBlock
+from stc_unet_tpu_torch.models.backbones.unet_backbone import (
+    MultiheadAttention, TransformerBlock, UnetBackbone)
+from stc_unet_tpu_torch.ops import dual_pools as tdp
+from stc_unet_tpu_torch.ops.flash_attention import (
+    _shape_args, flash_attention, flash_attention_backward,
+    flash_attention_backward_reference, flash_attention_bwd_dkv,
+    flash_attention_bwd_dq, flash_attention_forward,
+    flash_attention_reference)
+from stc_unet_tpu_torch.utils import jax_to_torch_state
+
+TOOLS = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), 'tools')
+
+
+def _inputs(shape, seed=0, lk=None):
+    """q, k, v, do (N, heads, L, d) f32 from a seed; k and v of length
+    ``lk`` when given."""
+    rng = np.random.RandomState(seed)
+    kv = shape[:2] + (lk or shape[2], shape[3])
+    return (rng.randn(*shape).astype(np.float32),
+            rng.randn(*kv).astype(np.float32),
+            rng.randn(*kv).astype(np.float32),
+            rng.randn(*shape).astype(np.float32))
+
+
+def _close(got, want, rtol=1e-5):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=rtol,
+                               atol=rtol * np.abs(want).max())
+
+
+@functools.lru_cache(maxsize=None)
+def _library(shape):
+    """The library's o, (l, m) residuals and jax.vjp gradients at shape,
+    in interpret mode."""
+    q, k, v, do = (jnp.asarray(a) for a in _inputs(shape))
+    scale = 1.0 / math.sqrt(shape[-1])
+    with pltpu.force_tpu_interpret_mode():
+        o, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(
+            a, b, c, sm_scale=scale), q, k, v)
+        grads = vjp(do)
+        _, l, m = jfa._flash_attention(
+            q, k, v, None, None, True, False, scale,
+            jfa.BlockSizes.get_default(*shape[:3], shape[2], shape[3]),
+            False)
+    return (np.asarray(o), np.asarray(l), np.asarray(m),
+            [np.asarray(g) for g in grads])
+
+
+SHAPES = [(1, 2, 128, 8), (2, 2, 256, 32), (1, 2, 128, 256)]
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_flash_attention_matches_the_library(shape):
+    """The port's flash_attention and its autograd gradients against the
+    library's flash_attention and jax.vjp, in interpret mode; lse against
+    the library's residuals, m + log l."""
+    o_ref, l_ref, m_ref, grads_ref = _library(shape)
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(shape))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    scale = 1.0 / math.sqrt(shape[-1])
+    o = flash_attention(*leaves, sm_scale=scale)
+    o.backward(do)
+    assert o.shape == shape and o.dtype == torch.float32
+    _close(o.detach(), o_ref)
+    for leaf, g in zip(leaves, grads_ref):
+        _close(leaf.grad, g)
+    _, lse = flash_attention_forward(q, k, v, scale)
+    np.testing.assert_allclose(lse.numpy(), m_ref + np.log(l_ref),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('shape', SHAPES[:2])
+def test_plain_backward_matches_jax_vjp(shape):
+    """flash_attention_backward_reference and the two plain halves (Ldkv's
+    dk, dv and Ldq's dq, from di = sum o*do) against jax.vjp of the
+    library's kernels."""
+    o_ref, _, _, (dq_ref, dk_ref, dv_ref) = _library(shape)
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(shape))
+    scale = 1.0 / math.sqrt(shape[-1])
+    o, lse = flash_attention_reference(q, k, v, scale)
+    dq, dk, dv = flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                    scale)
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        _close(got, want)
+    di = (o * do).sum(-1)
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, lse, do, di, scale)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+    assert torch.equal(flash_attention_bwd_dq(q, k, v, lse, do, di, scale),
+                       dq)
+    assert all(torch.equal(a, b) for a, b in zip(
+        flash_attention_backward(q, k, v, o, lse, do, scale), (dq, dk, dv)))
+
+
+@pytest.mark.parametrize('lq,lk,d', [(16, 16, 8), (100, 100, 64),
+                                     (100, 16, 256), (16, 100, 32)])
+def test_plain_versions_at_lengths_the_library_refuses(lq, lk, d):
+    """L = 16 and 100 (the library wants multiples of 128): the plain
+    versions against the einsum form of the library's ``mha_reference``
+    and its jax.vjp (``mha_reference``'s own VJP takes no sm_scale)."""
+    q, k, v, do = _inputs((2, 2, lq, d), seed=1, lk=lk)
+    scale = 1.0 / math.sqrt(d)
+
+    def reference(a, b, c):
+        s = jnp.einsum('nhqd,nhkd->nhqk', a, b) * scale
+        return jnp.einsum('nhqk,nhkd->nhqd', jax.nn.softmax(s, -1), c)
+
+    o_ref, vjp = jax.vjp(reference, *(jnp.asarray(a) for a in (q, k, v)))
+    grads_ref = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = flash_attention_reference(tq, tk, tv, scale)
+    _close(o, o_ref)
+    s = np.einsum('nhqd,nhkd->nhqk', q, k) * scale
+    np.testing.assert_allclose(
+        lse.numpy(), np.log(np.exp(s.astype(np.float64)).sum(-1)),
+        rtol=1e-5, atol=1e-5)
+    for got, want in zip(flash_attention_backward_reference(
+            tq, tk, tv, o, lse, tdo, scale), grads_ref):
+        _close(got, want)
+
+
+def test_cpu_wrappers_take_strided_views_and_launch_nothing():
+    """The model's q, k, v are views of (N, L, C) rows; on the CPU the
+    wrappers give their plain versions and count no launch."""
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randn(2, 40, 3 * 32).astype(np.float32))
+    q, k, v = (x[..., i * 32:(i + 1) * 32].reshape(2, 40, 2, 16)
+               .transpose(1, 2) for i in range(3))
+    assert not q.is_contiguous()
+    want = flash_attention_reference(*(t.contiguous() for t in (q, k, v)),
+                                     0.25)[0]
+    torch.testing.assert_close(flash_attention(q, k, v, 0.25), want,
+                               rtol=1e-6, atol=1e-6)
+    assert (flash_attention_forward.launches, flash_attention_bwd_dkv.launches,
+            flash_attention_bwd_dq.launches) == (0, 0, 0)
+
+
+def test_kernel_arguments_are_checked():
+    """What the kernels do not take raises before a launch: another dtype,
+    a head wider than 256, a strided last axis, mismatched shapes."""
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(TypeError, match='float32'):
+        _shape_args(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    wide = torch.zeros(1, 2, 8, 300)
+    with pytest.raises(ValueError, match='no kernel'):
+        _shape_args(wide, wide, wide)
+    strided = torch.zeros(1, 2, 8, 32)[..., ::2]
+    with pytest.raises(ValueError, match='contiguous last axis'):
+        _shape_args(strided, strided, strided)
+    with pytest.raises(ValueError, match='k and v'):
+        _shape_args(q, q, torch.zeros(1, 2, 9, 16))
+    ptrs, shape = _shape_args(q, torch.zeros(1, 2, 5, 16),
+                              torch.zeros(1, 2, 5, 16))
+    assert shape == (1, 2, 8, 5, 16) and len(ptrs) == 12
+
+
+# -- the modules ----------------------------------------------------------
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _state(variables):
+    """``jax_to_torch_state`` of one module's variables, under a name that
+    is then cut off (the bridge names a bare top-level leaf '.name')."""
+    state = jax_to_torch_state({k: {'m': v} for k, v in variables.items()})
+    return {k[len('m.'):]: v for k, v in state.items()}
+
+
+def _mha_params(c, heads, seed=0):
+    rng = np.random.RandomState(seed)
+    return {'in_proj_weight': (rng.randn(3 * c, c) * 0.3).astype(np.float32),
+            'in_proj_bias': (rng.randn(3 * c) * 0.1).astype(np.float32),
+            'out_proj': {'linear': {
+                'kernel': (rng.randn(c, c) * 0.3).astype(np.float32),
+                'bias': (rng.randn(c) * 0.1).astype(np.float32)}}}
+
+
+@pytest.mark.parametrize('dtype,train', [('float32', False),
+                                         ('bfloat16', False),
+                                         ('bfloat16', True)])
+def test_mha_flash_matches_jax(dtype, train):
+    """MultiheadAttention(use_flash=True) against the JAX module's flash
+    path: the output and the input gradients, in the eval and train dtype
+    flows (a bf16 input: eval promotes to f32, training stays bf16)."""
+    c, heads, n, length = 16, 2, 2, 128
+    rng = np.random.RandomState(3)
+    q, k, v, do = (rng.randn(n, length, c).astype(np.float32)
+                   for _ in range(4))
+    params = _mha_params(c, heads)
+    jdt = jnp.dtype(dtype)
+    jm = JMHA(embed_dim=c, num_heads=heads, use_flash=True)
+    args = [jnp.asarray(a, jdt) for a in (q, k, v)]
+    with pltpu.force_tpu_interpret_mode():
+        jout, vjp = jax.vjp(lambda *a: jm.apply({'params': params}, *a,
+                                                train=train), *args)
+        jgrads = vjp(jnp.asarray(do, jout.dtype))
+    tm = MultiheadAttention(c, heads, use_flash=True).train(train)
+    tm.load_state_dict(_state({'params': params}), strict=True)
+    tdt = getattr(torch, dtype)
+    leaves = [torch.from_numpy(a).to(tdt).requires_grad_(True)
+              for a in (q, k, v)]
+    tout = tm(*leaves)
+    assert str(tout.dtype) == f'torch.{jout.dtype}'
+    tout.backward(torch.from_numpy(do).to(tout.dtype))
+    tol = 1e-5 if dtype == 'float32' else 2 ** -5
+    _close(tout.detach().float(), jout, rtol=tol)
+    for leaf, g in zip(leaves, jgrads):
+        assert leaf.grad.dtype == tdt
+        _close(leaf.grad.float(), g, rtol=tol)
+
+
+def test_flash_and_einsum_paths_share_parameters():
+    """The flag has no parameters: one state dict loads into both variants
+    of the full backbone with strict=True, and at a width where
+    sqrt(hd) rounds to itself in f32 the two paths agree: rtol 1e-4, atol
+    1e-5 of the largest value, as two forms of the softmax round apart
+    through 8 layers."""
+    kw = dict(context_layer='kernelselect', transformer_block=True,
+              channel_list=(8, 16, 16, 32))
+    plain = UnetBackbone(**kw).eval()
+    flash = UnetBackbone(flash_attention=True, **kw).eval()
+    assert all(layer.ma.use_flash for layer in flash.aspp4.tr)
+    assert not any(layer.ma.use_flash for layer in plain.aspp5.tr)
+    gen = torch.Generator().manual_seed(0)
+    for p in plain.parameters():
+        with torch.no_grad():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+    flash.load_state_dict(plain.state_dict(), strict=True)
+    x = torch.rand(1, 3, 64, 64, generator=gen)
+    with torch.no_grad():
+        for a, b in zip(plain(x), flash(x)):
+            torch.testing.assert_close(
+                b, a, rtol=1e-4, atol=1e-5 * a.abs().max().item())
+
+
+def test_transformer_block_flash_matches_jax():
+    """One TransformerBlock (2 layers) with the flash path in training, f32:
+    its output and the gradients of its input and every parameter against
+    JAX's (jax.vjp in interpret mode)."""
+    c, heads, layers = 16, 2, 2
+    rng = np.random.RandomState(4)
+    x = rng.randn(1, 16, 8, c).astype(np.float32)   # 128 tokens
+    do = rng.randn(1, 16, 8, c).astype(np.float32)
+    variables = _np(JBlock(c, heads, layers).init(jax.random.PRNGKey(0),
+                                                  jnp.asarray(x)))
+    jb = JBlock(c, heads, layers, use_flash=True)
+    with pltpu.force_tpu_interpret_mode():
+        jy, vjp = jax.vjp(lambda p, a: jb.apply({'params': p}, a,
+                                                train=True),
+                          variables['params'], jnp.asarray(x))
+        jdp, jdx = vjp(jnp.asarray(do))
+    tb = TransformerBlock(c, heads, layers, use_flash=True).train()
+    tb.load_state_dict(_state(variables), strict=True)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_(True)
+    y = tb(xt)
+    y.backward(torch.from_numpy(do).permute(0, 3, 1, 2))
+    _close(y.detach().permute(0, 2, 3, 1), jy)
+    _close(xt.grad.permute(0, 2, 3, 1), jdx, rtol=1e-4)
+    jgrad = _state({'params': _np(jdp)})
+    assert sorted(jgrad) == sorted(k for k, _ in tb.named_parameters())
+    for name, p in tb.named_parameters():
+        _close(p.grad, jgrad[name].numpy(), rtol=1e-4)
+
+
+# -- kernel P: the probe's single-pass dual strip pool ----------------------
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_dual_pools_plain_version_matches_the_probe_kernel(dtype):
+    """dual_pools (its plain version on the CPU: two f32 sums) against the
+    probe's _pools_pallas in interpret mode; H in several row blocks."""
+    sys.path.insert(0, TOOLS)
+    try:
+        from probe_coordatt import _pools_pallas
+    finally:
+        sys.path.remove(TOOLS)
+    x = np.random.RandomState(5).rand(2, 16, 8, 24).astype(np.float32)
+    jx = jnp.asarray(x, jnp.dtype(dtype))
+    with pltpu.force_tpu_interpret_mode():
+        jh, jw = _pools_pallas(jx, 4)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    sh, sw = tdp.dual_pools(tx)
+    assert sh.dtype == sw.dtype == torch.float32
+    assert sh.shape == (2, 16, 24) and sw.shape == (2, 8, 24)
+    np.testing.assert_allclose(sh.numpy(), np.asarray(jh), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(sw.numpy(), np.asarray(jw), rtol=1e-5,
+                               atol=1e-5)
+    assert tdp.dual_pools.launches == 0
+
+
+def test_probe_tool_needs_a_card(monkeypatch, capsys):
+    """The port's CoordAtt probe times P on the card only: without CUDA it
+    exits 1 and prints no record."""
+    from stc_unet_tpu_torch.tools import probe_coordatt
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert probe_coordatt.main([]) == 1
+    assert capsys.readouterr().out == ''
+    with pytest.raises(RuntimeError, match='CUDA card'):
+        probe_coordatt.probe()

@@ -14,13 +14,21 @@ plain version: f32 rtol 1e-4 and atol 1e-5 of the largest value; in bf16
 an attention weight or a ds entry may round to the other neighbour, so
 rtol 2^-7 and atol 2^-7 of the largest value (dbias stays f32). At rate
 0.1 both draw the same Philox mask, so the rate-0 limits hold; K3b's
-reruns are bit-identical.
+reruns are bit-identical. Lf, Ldkv and Ldq (flash attention, f32) sum in
+another order and with an online softmax: rtol 1e-4 and atol 1e-5 of the
+largest value; their reruns are bit-identical. P (the probe's dual strip
+pool) as K1.
 """
 import pytest
 import torch
 
 from stc_unet_tpu_torch.ops import coordatt_fused as tfused
+from stc_unet_tpu_torch.ops import dual_pools as tdp
+from stc_unet_tpu_torch.ops import flash_attention_backward_reference
 from stc_unet_tpu_torch.ops import window_attention as twa
+from stc_unet_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    flash_attention_forward, flash_attention_reference)
 
 SHAPES = [(2, 8, 16, 24), (1, 16, 8, 128), (3, 4, 4, 8), (3, 37, 53, 24)]
 
@@ -163,3 +171,82 @@ def test_window_attention_matches_plain_versions_on_card(
                                                    heads, scale, rate)
     for i, (got, want) in enumerate(zip(grads, refs)):
         _close(got, want, dtype, f32_exact=i == 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,h,lq,lk,d', [
+    (2, 2, 1024, 1024, 256), (1, 2, 256, 256, 256), (2, 2, 100, 100, 64),
+    (1, 3, 1000, 37, 256), (2, 2, 77, 1000, 8), (1, 1, 16, 16, 8),
+    (1, 2, 129, 200, 100)])
+def test_flash_attention_matches_plain_versions_on_card(cuda_device, n, h,
+                                                        lq, lk, d):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q = torch.randn((n, h, lq, d), generator=g, device=cuda_device)
+    k, v = (torch.randn((n, h, lk, d), generator=g, device=cuda_device)
+            for _ in range(2))
+    do = torch.randn((n, h, lq, d), generator=g, device=cuda_device)
+    scale = d ** -0.5
+    before = (flash_attention_forward.launches,
+              flash_attention_bwd_dkv.launches,
+              flash_attention_bwd_dq.launches)
+    o, lse = flash_attention_forward(q, k, v, scale)
+    o2, lse2 = flash_attention_forward(q, k, v, scale)
+    di = (o * do).sum(-1)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, do, di, scale)
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, lse, do, di, scale)
+    dq = flash_attention_bwd_dq(q, k, v, lse, do, di, scale)
+    dq2 = flash_attention_bwd_dq(q, k, v, lse, do, di, scale)
+    assert (flash_attention_forward.launches,
+            flash_attention_bwd_dkv.launches,
+            flash_attention_bwd_dq.launches) == tuple(b + 2 for b in before)
+    for a, b in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2), (dq, dq2)):
+        assert torch.equal(a, b)
+    ro, rlse = flash_attention_reference(q, k, v, scale)
+    _close(o, ro, torch.float32)
+    _close(lse, rlse, torch.float32)
+    for got, want in zip((dq, dk, dv), flash_attention_backward_reference(
+            q, k, v, ro, rlse, do, scale)):
+        _close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_card(cuda_device):
+    """The autograd Function on strided views, as the model gives them: one
+    Lf launch forward, one Ldkv and one Ldq backward."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((2, 300, 3 * 512), generator=g, device=cuda_device)
+    leaves = [x[..., i * 512:(i + 1) * 512].reshape(2, 300, 2, 256)
+              .transpose(1, 2).detach().requires_grad_(True)
+              for i in range(3)]
+    assert not leaves[0].is_contiguous()
+    do = torch.randn((2, 2, 300, 256), generator=g, device=cuda_device)
+    before = (flash_attention_forward.launches,
+              flash_attention_bwd_dkv.launches,
+              flash_attention_bwd_dq.launches)
+    out = flash_attention(*leaves, sm_scale=0.0625)
+    out.backward(do)
+    assert (flash_attention_forward.launches,
+            flash_attention_bwd_dkv.launches,
+            flash_attention_bwd_dq.launches) == tuple(b + 1 for b in before)
+    ro, rlse = flash_attention_reference(*leaves, 0.0625)
+    _close(out.detach(), ro, torch.float32)
+    for leaf, want in zip(leaves, flash_attention_backward_reference(
+            *leaves, ro, rlse, do, 0.0625)):
+        _close(leaf.grad, want, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(14, 256, 256, 128), (14, 32, 32, 1024),
+                                   (3, 37, 53, 40), (1, 130, 71, 13)])
+def test_dual_pools_matches_plain_version_on_card(cuda_device, shape, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    before = tdp.dual_pools.launches
+    sh, sw = tdp.dual_pools(x)
+    sh2, sw2 = tdp.dual_pools(x)
+    assert tdp.dual_pools.launches == before + 2
+    eh, ew = tdp.dual_pools_reference(x)
+    torch.testing.assert_close(sh, eh, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(sw, ew, rtol=1e-5, atol=1e-4)
+    assert torch.equal(sh, sh2) and torch.equal(sw, sw2)
