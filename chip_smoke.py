@@ -56,18 +56,20 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
 9. holds the flash-attention kernels Lf, Ldkv and Ldq against their plain
    versions at the STC transformer's shapes (2 heads of 256 at x4 and x5
    of slide B=14, whole B=8 and bs 1) and at odd shapes, with
-   bit-identical reruns and the autograd Function
-   (``flash_attention_kernels``); serves STC-UNet with
-   ``backbone.flash_attention=True`` and the einsum model's weights as in
-   4, 8 Lf launches per forward, its logits held to the flash model on the
-   CPU and to the einsum model on the card (``flash_slice``); times it as
+   bit-identical reruns, the same bits with TF32 matmuls allowed and not,
+   and the autograd Function; counts the TF32 MMA instructions of each
+   backward kernel in the built library (``flash_attention_kernels``);
+   serves STC-UNet with ``backbone.flash_attention=True`` and the einsum
+   model's weights as in 4, 8 Lf launches per forward, its logits held to
+   the flash model on the CPU and to the einsum model on the card
+   (``flash_slice``); times it as
    in 5 at torch's defaults beside the einsum rows of the same run
    (``flash_timing``); times Lf, Ldkv and Ldq at one forward's or one
    step's eight calls beside their plain versions, the
-   ``scaled_dot_product_attention`` yardstick and their bounds
-   (``flash_attention_timing``); and checks and trains it as in 6 and 7
-   (``flash_train_check``, ``flash_train``: 8 Lf, 8 Ldkv and 8 Ldq
-   launches per step);
+   ``scaled_dot_product_attention`` yardstick and their bounds, in f32
+   FMAs and in 3xTF32 on the tensor cores (``flash_attention_timing``);
+   and checks and trains it as in 6 and 7 (``flash_train_check``,
+   ``flash_train``: 8 Lf, 8 Ldkv and 8 Ldq launches per step);
 10. runs the CoordAtt strip-pool probe
     (``stc_unet_tpu_torch/tools/probe_coordatt.py``): kernel P against its
     plain version, then timed beside K1 and two ``torch.sum``
@@ -97,6 +99,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12          # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS = 495e12          # H100 SXM TF32 tensor cores, dense
 # exponentials: 16 per SM per clock (the special-function units), 132 SMs
 # at the 1.98 GHz clock of the f32 rate (132 SMs x 128 lanes x 2 flops)
 EXPS_PER_S = 132 * 16 * F32_FLOPS / (132 * 128 * 2)
@@ -126,6 +129,7 @@ KERNELS = tuple(REPLACES)
 CF_KERNELS = KERNELS[:3]     # K1, K2, K2b in ops/coordatt_fused.py
 WA_KERNELS = KERNELS[3:5]    # K3f, K3b in ops/window_attention.py
 FA_KERNELS = KERNELS[5:8]    # Lf, Ldkv, Ldq in ops/flash_attention.py
+TC_KERNELS = KERNELS[6:8]    # Ldkv, Ldq: 3xTF32 on the TF32 tensor cores
 SOURCES = dict(**dict.fromkeys(CF_KERNELS, CF_SOURCE),
                **dict.fromkeys(WA_KERNELS, WA_SOURCE),
                **dict.fromkeys(FA_KERNELS, FA_SOURCE), dual_pools=DP_SOURCE)
@@ -510,8 +514,10 @@ def fa_close(torch, got, want, what):
 
 def check_flash(torch, fa, q, k, v, do, scale):
     """Lf, Ldkv and Ldq on q, k, v, do against their plain versions, each
-    rerun bit-identical; the autograd Function one launch of each with the
-    same outputs. Returns the three max abs errors (Lf: o and lse)."""
+    rerun bit-identical, and Ldkv's and Ldq's the same with
+    ``torch.backends.cuda.matmul.allow_tf32`` on (their 3xTF32 split does
+    not read it); the autograd Function one launch of each with the same
+    outputs. Returns the three max abs errors (Lf: o and lse)."""
     shape = tuple(q.shape[:3]) + (k.shape[2], q.shape[3])
     o, lse = fa.flash_attention_forward(q, k, v, scale)
     o2, lse2 = fa.flash_attention_forward(q, k, v, scale)
@@ -525,6 +531,16 @@ def check_flash(torch, fa, q, k, v, do, scale):
         if not torch.equal(a, b):
             raise AssertionError(f'flash attention {name} not deterministic '
                                  f'{shape}')
+    allowed = torch.backends.cuda.matmul.allow_tf32
+    for flag in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = flag
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, lse, do, di, scale)
+        dq2 = fa.flash_attention_bwd_dq(q, k, v, lse, do, di, scale)
+        for name, a, b in (('dk', dk, dk2), ('dv', dv, dv2), ('dq', dq, dq2)):
+            if not torch.equal(a, b):
+                raise AssertionError(f'flash attention {name} {shape} '
+                                     f'changes with allow_tf32={flag}')
+    torch.backends.cuda.matmul.allow_tf32 = allowed
     ro, rlse = fa.flash_attention_reference(q, k, v, scale)
     e_fwd = max(fa_close(torch, o, ro, f'o {shape}'),
                 fa_close(torch, lse, rlse, f'lse {shape}'))
@@ -551,10 +567,39 @@ def check_flash(torch, fa, q, k, v, do, scale):
     return e_fwd, e_dkv, e_dq
 
 
-def phase_flash_attention_kernels(torch, fa):
+def tf32_mmas(library):
+    """The TF32 tensor-core instructions (HMMA or HGMMA ... TF32) of each
+    kernel of a built library, from ``cuobjdump -sass``: {kernel's demangled
+    template name: count}."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, 'bin', 'cuobjdump'), '-sass', library],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            mangled = line.split('Function :')[1].strip()
+            # _ZN<anon namespace>..<len><name>ILi<DP>E(Lb<VEC>E)...:
+            # keep name<DP> or name<DP, VEC>
+            name = mangled.split('flash_')[-1].split('EE')[0]
+            fn = 'flash_' + name.replace('ILi', '<').replace('ELb', ', ') + '>'
+            counts[fn] = 0
+        elif fn and 'MMA' in line and 'TF32' in line:
+            counts[fn] += 1
+    return counts
+
+
+def phase_flash_attention_kernels(torch, fa, library):
     """Lf, Ldkv and Ldq against their plain versions on the card, f32: at
     the STC transformer's shapes (x4 and x5 of slide B=14, whole B=8 and
-    bs 1) and at odd shapes."""
+    bs 1) and at odd shapes. First, every instantiation of Ldkv and Ldq
+    must hold TF32 tensor-core instructions in the built library."""
+    mmas = tf32_mmas(library)
+    backward = {k: v for k, v in mmas.items() if '_tc<' in k}
+    if {k.split('<')[0] for k in backward} != {'flash_bwd_dkv_tc',
+                                               'flash_bwd_dq_tc'} or \
+            not all(backward.values()):
+        raise AssertionError(f'Ldkv and Ldq: no TF32 MMA in {mmas}')
     err = dict.fromkeys(FA_KERNELS, 0.0)
     checked = []
     cases = [(n, FA_HEADS, l, l, FA_D) for n, l in
@@ -570,10 +615,11 @@ def phase_flash_attention_kernels(torch, fa):
         del q, k, v, do
         torch.cuda.empty_cache()
     emit('flash_attention_kernels', ok=True, checked=checked,
-         shape='(N, heads, Lq, Lk, d), float32',
+         shape='(N, heads, Lq, Lk, d), float32', sass_tf32_mmas=mmas,
          tolerance='rtol 1e-4, atol 1e-5 of the largest value (o, lse, dq, '
-                   'dk, dv); every rerun bit-identical; the autograd '
-                   'Function one launch of each kernel with their outputs')
+                   'dk, dv); every rerun bit-identical, Ldkv and Ldq also '
+                   'with TF32 matmuls allowed; the autograd Function one '
+                   'launch of each kernel with their outputs')
     return err
 
 
@@ -633,6 +679,7 @@ def flash_rows(torch, fa, n, length, calls, seed, backward, err):
     for name, r in rows.items():
         r.update(shape=[n, h, length, d], calls=calls)
         bound(r)
+        bound(r, TF32_FLOPS / 3, key='bound_tc')
     del q, k, v, do
     torch.cuda.empty_cache()
     return rows, sdpa
@@ -658,7 +705,7 @@ def phase_flash_attention_timing(torch, fa, err):
     def total(rows, key):
         return sum(r['calls'] * r[key] for r in rows)
 
-    keys = ('ms', 'plain_ms', 'bound_ms', 'library_ms')
+    keys = ('ms', 'plain_ms', 'bound_ms', 'bound_tc_ms', 'library_ms')
     emit('flash_attention_timing', dtype='float32', heads=FA_HEADS, d=FA_D,
          sdpa_backend=sdpa,
          library=dict(
@@ -667,8 +714,11 @@ def phase_flash_attention_timing(torch, fa, err):
              backward='torch.autograd.grad of it to q, k and v: dq, dk and '
                       'dv in one call, beside Ldkv and beside Ldq'),
          bound='largest of bytes / 3.35 TB/s, exponentials / 4.2e12 per s, '
-               'dot-product flops / 67 TFLOP/s (f32; Lf 2 products, Ldkv 4, '
-               'Ldq 3)',
+               'dot-product flops / 67 TFLOP/s (f32 outside the tensor '
+               'cores; Lf 2 products, Ldkv 4, Ldq 3)',
+         bound_tc='the same with 3 x the dot-product flops / 495 TFLOP/s '
+                  '(3xTF32: three TF32 products per f32 product on the '
+                  'TF32 tensor cores)',
          slide_b14_forward=dict(rows=slide, **{
              f'total_{k}': total(slide, k) for k in keys}),
          whole_b8=dict(rows=per, **{
@@ -879,15 +929,17 @@ def phase_timing(torch, model, settings, phase='timing', run='slide',
     return rows
 
 
-def bound(r, flop_rate=F32_FLOPS):
+def bound(r, flop_rate=F32_FLOPS, key='bound'):
     """Fill in r's bound: the largest of its bytes over the memory rate,
     its flops over ``flop_rate`` (the peak for their inputs' type) and its
     exponentials (``exps``, if any) over the special-function units'
-    rate."""
+    rate; as ``{key}_ms`` and ``{key}_by``. ``flash_rows`` also fills
+    ``bound_tc`` at TF32_FLOPS / 3: products in 3xTF32, three TF32 products
+    per f32 product on the tensor cores."""
     t_bytes = r['bytes'] / HBM_BYTES_PER_S * 1e3
     t_ops = max(r['flops'] / flop_rate, r.get('exps', 0) / EXPS_PER_S) * 1e3
-    r.update(bound_ms=max(t_bytes, t_ops),
-             bound_by='bytes' if t_bytes >= t_ops else 'operations')
+    r.update({f'{key}_ms': max(t_bytes, t_ops),
+              f'{key}_by': 'bytes' if t_bytes >= t_ops else 'operations'})
     return r
 
 
@@ -1323,7 +1375,8 @@ def main(argv=None):
     # 3. kernels against their plain versions
     err = phase_kernels(torch, cf)
     err.update(phase_window_attention_kernels(torch, wa))
-    err.update(phase_flash_attention_kernels(torch, fa))
+    err.update(phase_flash_attention_kernels(
+        torch, fa, str(libs['flash_attention']['path'])))
     modules = dict(**dict.fromkeys(CF_KERNELS, cf),
                    **dict.fromkeys(WA_KERNELS, wa),
                    **dict.fromkeys(FA_KERNELS, fa), dual_pools=dp)
@@ -1427,18 +1480,21 @@ def main(argv=None):
 
     # the kernels of every path: the times of one forward's (K1, K2, K3f,
     # Lf) or one step's (K2b, K3b, Ldkv, Ldq) launches at the timed shapes;
-    # P's over the probe's four stages
+    # P's over the probe's four stages. Ldkv's and Ldq's bound is that of
+    # the type they compute in, 3xTF32 on the tensor cores.
     kernels = []
     for name in KERNELS:
         rows = per[name]
         calls = [r.get('calls', 1) for r in rows]
+        b = 'bound_tc' if name in TC_KERNELS else 'bound'
         kernels.append(dict(
             name=name, route='cuda', source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=err[name],
             **{key: sum(n * r[key] for n, r in zip(calls, rows))
-               for key in ('ms', 'plain_ms', 'bound_ms', 'library_ms')},
-            bound_by='bytes' if all(r['bound_by'] == 'bytes' for r in rows)
+               for key in ('ms', 'plain_ms', 'library_ms')},
+            bound_ms=sum(n * r[f'{b}_ms'] for n, r in zip(calls, rows)),
+            bound_by='bytes' if all(r[f'{b}_by'] == 'bytes' for r in rows)
             else 'operations'))
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

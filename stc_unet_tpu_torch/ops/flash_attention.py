@@ -16,8 +16,11 @@ calls when ``UnetBackbone(flash_attention=True)``
 - Ldq ``stc_flash_attention_bwd_dq`` ← ``_flash_attention_bwd_dq``: dq, a
   block per query tile walking the key tiles.
 
-All three are bound by their f32 products on the card (f32 FMAs, not
-TF32); the source says what the design does about it. The backward's
+All three are bound by their f32 products on the card. Lf computes them as
+f32 FMAs on the CUDA cores; Ldkv and Ldq on the tensor cores in 3xTF32
+(each operand split into two TF32 halves, three products summed in f32),
+which keeps f32 accuracy and does not read torch's TF32 flags. The source
+says what each design does about its bound. The backward's
 ``di = Σ_d o·do`` is one plain reduction here, as the library forms it
 outside its kernels (``_flash_attention_bwd``).
 

@@ -335,3 +335,148 @@ def test_probe_tool_needs_a_card(monkeypatch, capsys):
     assert capsys.readouterr().out == ''
     with pytest.raises(RuntimeError, match='CUDA card'):
         probe_coordatt.probe()
+
+
+# -- the ablation probe of Ldkv and Ldq ---------------------------------------
+
+def test_flash_bwd_probe_needs_a_card(monkeypatch, capsys):
+    """The backward ablation probe builds and times on the card only:
+    without CUDA it exits 1 and prints no record."""
+    from stc_unet_tpu_torch.tools import probe_flash_bwd
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert probe_flash_bwd.main([]) == 1
+    assert capsys.readouterr().out == ''
+    with pytest.raises(RuntimeError, match='CUDA card'):
+        probe_flash_bwd.probe()
+
+
+@pytest.mark.parametrize('variant', ['base', 'no_scores', 'no_grads',
+                                     'no_prefetch', 'masked_copy',
+                                     'trunc_hi', 'cvt_rna_hi'])
+def test_flash_bwd_probe_edits_apply_to_the_source(variant):
+    """Each variant's edits match the kernel source as often as they
+    should, and only ``base`` leaves it as it is."""
+    from stc_unet_tpu_torch.ops import _build
+    from stc_unet_tpu_torch.tools import probe_flash_bwd
+    source = (_build.SRC_DIR / 'flash_attention.cu').read_text()
+    edited = probe_flash_bwd.variant_source(variant, source)
+    assert (edited == source) == (variant == 'base')
+    assert 'flash_bwd_dkv_tc' in edited and 'flash_bwd_dq_tc' in edited
+
+
+def test_flash_bwd_probe_reads_ptxas_and_sass():
+    """The probe's counts of the timed kernels (DP = 256, 16-byte copies)
+    from nvcc's ptxas lines and from ``cuobjdump -sass`` text, past
+    address 0xffff too; other kernels are left out."""
+    from stc_unet_tpu_torch.tools import probe_flash_bwd
+    dkv = '_ZN12_GLOBAL__N_116flash_bwd_dkv_tcILi256ELb1EEEvNS_4RowsE'
+    dq32 = '_ZN12_GLOBAL__N_115flash_bwd_dq_tcILi32ELb1EEEvNS_4RowsE'
+    log = '\n'.join([
+        f"ptxas info    : Compiling entry function '{dkv}' for 'sm_90a'",
+        f'ptxas info    : Function properties for {dkv}',
+        '    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads',
+        'ptxas info    : Used 255 registers, used 1 barriers',
+        f"ptxas info    : Compiling entry function '{dq32}' for 'sm_90a'",
+        'ptxas info    : Used 96 registers, used 1 barriers'])
+    assert probe_flash_bwd.ptxas_usage(log) == {
+        'flash_bwd_dkv_tc': {'spill_bytes': 8, 'registers': 255}}
+    sass = '\n'.join([
+        f'\t\tFunction : {dkv}',
+        '        /*fff0*/   IMAD.MOV.U32 R1, RZ, RZ, R2 ;',
+        '        /*10000*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;',
+        '        /*10010*/  EXIT ;',
+        f'\t\tFunction : {dq32}',
+        '        /*0000*/   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;'])
+    assert probe_flash_bwd.count_sass(sass) == {
+        'flash_bwd_dkv_tc': {'instructions': 3, 'tf32_mmas': 1}}
+
+
+def _tf32(x, nearest=True):
+    """x (float32) rounded to TF32's 10 mantissa bits on the float32 bit
+    pattern: to nearest with ties away from zero (``cvt.rna.tf32.f32``), or
+    toward zero (the tensor core reading an f32 register as TF32)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    if nearest:
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32x3(a, b, lo_nearest):
+    """a·b with each operand split as the card's Ldkv and Ldq split it: hi
+    = tf32(x) and lo = tf32(x - hi), lo·hi + hi·lo + hi·hi. This models the
+    operand splitting only: the sums are numpy's f32 matmul, rounded to
+    nearest, not the MMA's (``_mma_sum``)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah, lo_nearest), _tf32(b - bh, lo_nearest)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+@pytest.mark.parametrize('lo_rounding', ['nearest', 'toward zero'])
+@pytest.mark.parametrize('product', ['dq = ds k', 'dk = ds^T q'])
+def test_tf32_split_keeps_the_backward_at_f32_accuracy(product, lo_rounding):
+    """Why Ldkv and Ldq split every operand: at the model's width (d = 256,
+    1024 keys, 32 query rows, from a seed) 3xTF32 products stay within the
+    card check's limits (rtol 1e-4, atol 1e-5 of the largest value) of the
+    f64 product of the same f32 inputs, with lo rounded to nearest or, as
+    the kernels leave it to the tensor core, toward zero; single-pass TF32
+    does not."""
+    rng = np.random.RandomState(11)
+    rows, keys, d = 32, 1024, 256
+    q, do = rng.randn(2, rows, d)
+    k, v = rng.randn(2, keys, d)
+    scale = d ** -0.5
+    s = q @ k.T * scale
+    p = np.exp(s - s.max(1, keepdims=True))
+    p /= p.sum(1, keepdims=True)
+    di = (p @ v * do).sum(1)
+    ds = (p * (do @ v.T - di[:, None]) * scale).astype(np.float32)
+    a, b = ((ds, k.astype(np.float32)) if product == 'dq = ds k' else
+            (np.ascontiguousarray(ds.T), q.astype(np.float32)))
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    limit = 1e-4 * np.abs(want) + 1e-5 * np.abs(want).max()
+    assert np.all(np.abs(_tf32x3(a, b, lo_rounding == 'nearest') - want) <=
+                  limit)
+    assert not np.all(np.abs(_tf32(a) @ _tf32(b) - want) <= limit)
+
+
+def _toward_zero(x):
+    """x (float64) rounded to float32 toward zero."""
+    r = x.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(x)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_mma_sum_in_fresh_chunks_keeps_dv_at_f32_accuracy(seed):
+    """Why Ldkv and Ldq sum every 32 rows in fresh accumulators. A model of
+    the MMA's f32 sum: each m16n8k8 step adds its eight exact TF32 products
+    to the accumulator and rounds toward zero. dv = p^T do over 4096 rows
+    (32 keys, d = 256, the split operands of ``_tf32x3``): one chain of all
+    1536 steps drifts past the card check's limits (rtol 1e-4, atol 1e-5 of
+    the largest value) of the f64 product; a chain per 32 rows, its sums
+    added in f32 to nearest, stays well inside them."""
+    rng = np.random.RandomState(seed)
+    rows, keys, d = 4096, 32, 256
+    q, k = rng.randn(rows, d), rng.randn(rows, d)
+    s = q @ k.T / 16
+    p = np.exp(s - s.max(1, keepdims=True))
+    p = (p / p.sum(1, keepdims=True))[:, :keys].astype(np.float32)
+    a, b = np.ascontiguousarray(p.T), rng.randn(rows, d).astype(np.float32)
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah, False), _tf32(b - bh, False)
+    terms = [(x.astype(np.float64), y.astype(np.float64))
+             for x, y in ((al, bh), (ah, bl), (ah, bh))]
+    chain = chunked = np.zeros((keys, d), np.float32)
+    for r0 in range(0, rows, 32):
+        part = np.zeros((keys, d), np.float32)
+        for r in range(r0, r0 + 32, 8):
+            for x, y in terms:
+                step = x[:, r:r + 8] @ y[r:r + 8]
+                chain = _toward_zero(chain + step)
+                part = _toward_zero(part + step)
+        chunked = chunked + part
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    limit = 1e-4 * np.abs(want) + 1e-5 * np.abs(want).max()
+    assert not np.all(np.abs(chain - want) <= limit)
+    assert np.all(np.abs(chunked - want) <= 0.1 * limit)

@@ -16,8 +16,9 @@ rtol 2^-7 and atol 2^-7 of the largest value (dbias stays f32). At rate
 0.1 both draw the same Philox mask, so the rate-0 limits hold; K3b's
 reruns are bit-identical. Lf, Ldkv and Ldq (flash attention, f32) sum in
 another order and with an online softmax: rtol 1e-4 and atol 1e-5 of the
-largest value; their reruns are bit-identical. P (the probe's dual strip
-pool) as K1.
+largest value; their reruns are bit-identical, and Ldkv's and Ldq's do
+not change with ``torch.backends.cuda.matmul.allow_tf32``. P (the
+probe's dual strip pool) as K1.
 """
 import pytest
 import torch
@@ -173,13 +174,24 @@ def test_window_attention_matches_plain_versions_on_card(
         _close(got, want, dtype, f32_exact=i == 3)
 
 
+# Ldkv and Ldq tile 32 keys and 32 query rows and pad d with zeros to 32,
+# 64, 128 or 256 (the MMA depth is 8): lengths one below and above a tile,
+# or two, and widths that are no multiple of 8 or just past a padding
+FLASH_EDGES = [(1, 2, 63, 31, 64), (2, 1, 65, 33, 32), (1, 2, 129, 63, 128),
+               (1, 1, 63, 65, 256), (2, 2, 65, 31, 1), (1, 2, 129, 33, 7),
+               (1, 2, 63, 65, 255), (1, 1, 33, 129, 33)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('n,h,lq,lk,d', [
     (2, 2, 1024, 1024, 256), (1, 2, 256, 256, 256), (2, 2, 100, 100, 64),
     (1, 3, 1000, 37, 256), (2, 2, 77, 1000, 8), (1, 1, 16, 16, 8),
-    (1, 2, 129, 200, 100)])
+    (1, 2, 129, 200, 100)] + FLASH_EDGES)
 def test_flash_attention_matches_plain_versions_on_card(cuda_device, n, h,
                                                         lq, lk, d):
+    """Lf, Ldkv and Ldq against their plain versions; reruns bit-identical,
+    and Ldkv's and Ldq's also with TF32 matmuls allowed: their 3xTF32
+    split never reads the flag."""
     g = torch.Generator(device=cuda_device).manual_seed(4)
     q = torch.randn((n, h, lq, d), generator=g, device=cuda_device)
     k, v = (torch.randn((n, h, lk, d), generator=g, device=cuda_device)
@@ -196,10 +208,19 @@ def test_flash_attention_matches_plain_versions_on_card(cuda_device, n, h,
     dk2, dv2 = flash_attention_bwd_dkv(q, k, v, lse, do, di, scale)
     dq = flash_attention_bwd_dq(q, k, v, lse, do, di, scale)
     dq2 = flash_attention_bwd_dq(q, k, v, lse, do, di, scale)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        dk3, dv3 = flash_attention_bwd_dkv(q, k, v, lse, do, di, scale)
+        dq3 = flash_attention_bwd_dq(q, k, v, lse, do, di, scale)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
     assert (flash_attention_forward.launches,
             flash_attention_bwd_dkv.launches,
-            flash_attention_bwd_dq.launches) == tuple(b + 2 for b in before)
-    for a, b in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2), (dq, dq2)):
+            flash_attention_bwd_dq.launches) == (before[0] + 2,
+                                                 before[1] + 3,
+                                                 before[2] + 3)
+    for a, b in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2), (dq, dq2),
+                 (dk, dk3), (dv, dv3), (dq, dq3)):
         assert torch.equal(a, b)
     ro, rlse = flash_attention_reference(q, k, v, scale)
     _close(o, ro, torch.float32)
