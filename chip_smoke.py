@@ -20,11 +20,18 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
    with bit-identical reruns for K1 and K2b; K3f ``window_attention`` and
    K3b ``window_attention_backward`` at MaxViT's B=8 stage shapes, at rate
    0.1 with the same seed (the same dropout mask), and at odd shapes, with
-   bit-identical reruns of K3b; all in f32 and bf16;
+   bit-identical reruns of K3b; all in f32 and bf16; then every kernel of
+   the three paths at the 65535 that a grid's y or z holds and one past it
+   (N images, W windows, N·heads), against its plain version with
+   bit-identical reruns (``launch_limits``);
 4. serves STC-UNet slide and whole requests (B=2 at 512², bf16 images, as
    the benchmark feeds them) and checks that each forward launched K1 and
    K2 4 times; holds the card's logits on a 256² image against the port
-   on the CPU (f32, TF32 off);
+   on the CPU (f32, TF32 off); and holds the card's logits at torch's
+   TF32 defaults, which a caller of ``init_segmentor`` runs with, to the
+   CPU's at 512², whole and slide, f32 (``tf32_check``: logit error
+   within 1e-2 of the largest, class margin within 0.1 of its spread,
+   argmax >= 0.999);
 5. times slide (B=14, 126 tiles), whole (B=8) and the bs-1 whole latency
    with CUDA events, with TF32 off, at torch's defaults and on, and breaks
    one slide forward of each down by kernel with torch.profiler; times each
@@ -55,10 +62,11 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
    (``maxvit_train``);
 9. holds the flash-attention kernels Lf, Ldkv and Ldq against their plain
    versions at the STC transformer's shapes (2 heads of 256 at x4 and x5
-   of slide B=14, whole B=8 and bs 1) and at odd shapes, with
-   bit-identical reruns, the same bits with TF32 matmuls allowed and not,
-   and the autograd Function; counts the TF32 MMA instructions of each
-   backward kernel in the built library (``flash_attention_kernels``);
+   of slide B=14, whole B=8 and bs 1), at odd shapes and at the edges of
+   Lf's tiling, with bit-identical reruns, the same bits with TF32
+   matmuls allowed and not, and the autograd Function; counts the TF32
+   MMA instructions of each build of the three in the built library
+   (``flash_attention_kernels``);
    serves STC-UNet with ``backbone.flash_attention=True`` and the einsum
    model's weights as in 4, 8 Lf launches per forward, its logits held to
    the flash model on the CPU and to the einsum model on the card
@@ -67,7 +75,8 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
    (``flash_timing``); times Lf, Ldkv and Ldq at one forward's or one
    step's eight calls beside their plain versions, the
    ``scaled_dot_product_attention`` yardstick and their bounds, in f32
-   FMAs and in 3xTF32 on the tensor cores (``flash_attention_timing``);
+   FMAs and in 3xTF32 on the tensor cores, and Lf at bs 1
+   (``flash_attention_timing``);
    and checks and trains it as in 6 and 7 (``flash_train_check``,
    ``flash_train``: 8 Lf, 8 Ldkv and 8 Ldq launches per step);
 10. runs the CoordAtt strip-pool probe
@@ -129,7 +138,7 @@ KERNELS = tuple(REPLACES)
 CF_KERNELS = KERNELS[:3]     # K1, K2, K2b in ops/coordatt_fused.py
 WA_KERNELS = KERNELS[3:5]    # K3f, K3b in ops/window_attention.py
 FA_KERNELS = KERNELS[5:8]    # Lf, Ldkv, Ldq in ops/flash_attention.py
-TC_KERNELS = KERNELS[6:8]    # Ldkv, Ldq: 3xTF32 on the TF32 tensor cores
+TC_KERNELS = KERNELS[5:8]    # Lf, Ldkv, Ldq: 3xTF32 on the TF32 tensor cores
 SOURCES = dict(**dict.fromkeys(CF_KERNELS, CF_SOURCE),
                **dict.fromkeys(WA_KERNELS, WA_SOURCE),
                **dict.fromkeys(FA_KERNELS, FA_SOURCE), dual_pools=DP_SOURCE)
@@ -154,6 +163,18 @@ FA_BS1 = [(1, 4096), (1, 1024)]
 # and 256, Lq != Lk, no length a multiple of a tile
 FA_ODD = [(2, 2, 16, 16, 8), (2, 2, 100, 100, 64), (1, 2, 1000, 1000, 256),
           (1, 3, 77, 1000, 8), (2, 1, 1000, 37, 256), (1, 2, 129, 200, 100)]
+# edges of Lf's tiling (64 query rows a block, keys in tiles of 32, d
+# padded to 32, 64, 128 or 256): L of 1, 63, 65 and 4097, d of 1, 33, 255
+FA_EDGES = [(1, 2, 1, 1, 33), (2, 2, 1, 4097, 1), (1, 2, 63, 65, 255),
+            (2, 1, 65, 63, 1), (1, 2, 4097, 4097, 255), (1, 1, 4097, 1, 33)]
+# the launch limit a grid's y or z holds, which K1/K2b (N), K3f/K3b (W)
+# and L (N·heads) were held to until they moved that axis to grid.x or
+# into chunks; checked at it and one past it
+GRID_YZ = 65535
+# the TF32 check of the logits at torch's defaults, 512², whole and slide:
+# limits set before its first run on the card
+TF32_LIMITS = dict(logit_err_over_max=1e-2, margin_err_over_spread=0.1,
+                   argmax_agreement=0.999)
 # MaxViT's window attention at B=8, 512²: (windows W, tokens N, channels C,
 # calls per forward) per stage; 32 heads, 8x8 windows and grids; the /4,
 # /8 and /16 stages run in the encoder and the decoder
@@ -514,10 +535,10 @@ def fa_close(torch, got, want, what):
 
 def check_flash(torch, fa, q, k, v, do, scale):
     """Lf, Ldkv and Ldq on q, k, v, do against their plain versions, each
-    rerun bit-identical, and Ldkv's and Ldq's the same with
-    ``torch.backends.cuda.matmul.allow_tf32`` on (their 3xTF32 split does
-    not read it); the autograd Function one launch of each with the same
-    outputs. Returns the three max abs errors (Lf: o and lse)."""
+    rerun bit-identical, and each the same with
+    ``torch.backends.cuda.matmul.allow_tf32`` on and off (their 3xTF32
+    split does not read it); the autograd Function one launch of each with
+    the same outputs. Returns the three max abs errors (Lf: o and lse)."""
     shape = tuple(q.shape[:3]) + (k.shape[2], q.shape[3])
     o, lse = fa.flash_attention_forward(q, k, v, scale)
     o2, lse2 = fa.flash_attention_forward(q, k, v, scale)
@@ -534,9 +555,11 @@ def check_flash(torch, fa, q, k, v, do, scale):
     allowed = torch.backends.cuda.matmul.allow_tf32
     for flag in (True, False):
         torch.backends.cuda.matmul.allow_tf32 = flag
+        o2, lse2 = fa.flash_attention_forward(q, k, v, scale)
         dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, lse, do, di, scale)
         dq2 = fa.flash_attention_bwd_dq(q, k, v, lse, do, di, scale)
-        for name, a, b in (('dk', dk, dk2), ('dv', dv, dv2), ('dq', dq, dq2)):
+        for name, a, b in (('o', o, o2), ('lse', lse, lse2), ('dk', dk, dk2),
+                           ('dv', dv, dv2), ('dq', dq, dq2)):
             if not torch.equal(a, b):
                 raise AssertionError(f'flash attention {name} {shape} '
                                      f'changes with allow_tf32={flag}')
@@ -547,12 +570,18 @@ def check_flash(torch, fa, q, k, v, do, scale):
     rdi = (ro * do).sum(-1)
     rdk, rdv = fa.flash_attention_bwd_dkv_reference(q, k, v, rlse, do, rdi,
                                                     scale)
-    e_dkv = max(fa_close(torch, dk, rdk, f'dk {shape}'),
-                fa_close(torch, dv, rdv, f'dv {shape}'))
-    del rdk, rdv
-    e_dq = fa_close(torch, dq, fa.flash_attention_bwd_dq_reference(
-        q, k, v, rlse, do, rdi, scale), f'dq {shape}')
-    del ro, rlse, rdi
+    e_dv = fa_close(torch, dv, rdv, f'dv {shape}')
+    if k.shape[2] == 1:
+        # one key: p = 1 and ds = 0, so dq and dk vanish and both sides give
+        # rounding noise; held to zero at 1e-5 of the largest dv
+        e_dkv, e_dq = max(e_dv, dk.abs().max().item()), dq.abs().max().item()
+        if max(e_dkv, e_dq) > 1e-5 * rdv.abs().max().item():
+            raise AssertionError(f'dq, dk {shape}: {e_dq}, {e_dkv} for 0')
+    else:
+        e_dkv = max(fa_close(torch, dk, rdk, f'dk {shape}'), e_dv)
+        e_dq = fa_close(torch, dq, fa.flash_attention_bwd_dq_reference(
+            q, k, v, rlse, do, rdi, scale), f'dq {shape}')
+    del ro, rlse, rdi, rdk, rdv
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     before = [getattr(fa, name).launches for name in FA_KERNELS]
     out = fa.flash_attention(*leaves, sm_scale=scale)
@@ -592,18 +621,20 @@ def tf32_mmas(library):
 def phase_flash_attention_kernels(torch, fa, library):
     """Lf, Ldkv and Ldq against their plain versions on the card, f32: at
     the STC transformer's shapes (x4 and x5 of slide B=14, whole B=8 and
-    bs 1) and at odd shapes. First, every instantiation of Ldkv and Ldq
-    must hold TF32 tensor-core instructions in the built library."""
+    bs 1), at odd shapes and at the edges of Lf's tiling. First, every
+    instantiation of each of the three (4 head widths, 16- and 4-byte
+    copies) must hold TF32 tensor-core instructions in the built
+    library."""
     mmas = tf32_mmas(library)
-    backward = {k: v for k, v in mmas.items() if '_tc<' in k}
-    if {k.split('<')[0] for k in backward} != {'flash_bwd_dkv_tc',
-                                               'flash_bwd_dq_tc'} or \
-            not all(backward.values()):
-        raise AssertionError(f'Ldkv and Ldq: no TF32 MMA in {mmas}')
+    names = ('flash_fwd_tc', 'flash_bwd_dkv_tc', 'flash_bwd_dq_tc')
+    if sorted(k.split('<')[0] for k in mmas) != sorted(names * 8) or \
+            not all(mmas.values()):
+        raise AssertionError(f'Lf, Ldkv and Ldq: not 8 builds each, all '
+                             f'with TF32 MMAs: {mmas}')
     err = dict.fromkeys(FA_KERNELS, 0.0)
     checked = []
     cases = [(n, FA_HEADS, l, l, FA_D) for n, l in
-             FA_SLIDE + FA_WHOLE + FA_BS1] + FA_ODD
+             FA_SLIDE + FA_WHOLE + FA_BS1] + FA_ODD + FA_EDGES
     for i, (n, h, lq, lk, d) in enumerate(cases):
         q, k, v, do = fa_inputs(torch, n, h, lq, lk, d, 300 + i)
         errs = check_flash(torch, fa, q, k, v, do, d ** -0.5)
@@ -617,9 +648,11 @@ def phase_flash_attention_kernels(torch, fa, library):
     emit('flash_attention_kernels', ok=True, checked=checked,
          shape='(N, heads, Lq, Lk, d), float32', sass_tf32_mmas=mmas,
          tolerance='rtol 1e-4, atol 1e-5 of the largest value (o, lse, dq, '
-                   'dk, dv); every rerun bit-identical, Ldkv and Ldq also '
-                   'with TF32 matmuls allowed; the autograd Function one '
-                   'launch of each kernel with their outputs')
+                   'dk, dv; with one key dq and dk vanish and are held to '
+                   'zero at 1e-5 of the largest dv); every rerun '
+                   'bit-identical, also with TF32 matmuls allowed; the '
+                   'autograd Function one launch of each kernel with their '
+                   'outputs')
     return err
 
 
@@ -686,16 +719,21 @@ def flash_rows(torch, fa, n, length, calls, seed, backward, err):
 
 
 def phase_flash_attention_timing(torch, fa, err):
-    """Lf at one forward's eight calls (4 at x4, 4 at x5) of slide B=14
-    and of whole B=8; Ldkv and Ldq at one B=8 train step's eight calls;
-    f32 at the model's shapes and strides. Returns the whole B=8 rows per
-    kernel (the kernels line's), the slide rows in the phase line."""
+    """Lf at one forward's eight calls (4 at x4, 4 at x5) of slide B=14,
+    of whole B=8 and of whole bs 1; Ldkv and Ldq at one B=8 train step's
+    eight calls; f32 at the model's shapes and strides. Returns the whole
+    B=8 rows per kernel (the kernels line's), the slide and bs-1 rows in
+    the phase line."""
     per = {name: [] for name in FA_KERNELS}
-    slide, sdpa = [], {}
+    slide, bs1, sdpa = [], [], {}
     for i, (n, length) in enumerate(FA_SLIDE):
         rows, sdpa[f'slide L={length}'] = flash_rows(
             torch, fa, n, length, FA_CALLS, 400 + i, False, err)
         slide.append(rows['flash_attention_forward'])
+    for i, (n, length) in enumerate(FA_BS1):
+        rows, sdpa[f'bs1 L={length}'] = flash_rows(
+            torch, fa, n, length, FA_CALLS, 420 + i, False, err)
+        bs1.append(rows['flash_attention_forward'])
     for i, (n, length) in enumerate(FA_WHOLE):
         rows, sdpa[f'whole L={length}'] = flash_rows(
             torch, fa, n, length, FA_CALLS, 410 + i, True, err)
@@ -718,13 +756,114 @@ def phase_flash_attention_timing(torch, fa, err):
                'cores; Lf 2 products, Ldkv 4, Ldq 3)',
          bound_tc='the same with 3 x the dot-product flops / 495 TFLOP/s '
                   '(3xTF32: three TF32 products per f32 product on the '
-                  'TF32 tensor cores)',
+                  'TF32 tensor cores, as all three compute them)',
          slide_b14_forward=dict(rows=slide, **{
              f'total_{k}': total(slide, k) for k in keys}),
+         bs1_forward=dict(rows=bs1, **{
+             f'total_{k}': total(bs1, k) for k in keys}),
          whole_b8=dict(rows=per, **{
              f'{name}_total_{k}': total(per[name], k)
              for name in FA_KERNELS for k in keys}))
     return per
+
+
+def phase_launch_limits(torch, cf, wa, fa):
+    """Each kernel family at the 65535 that a grid's y or z holds
+    (``GRID_YZ``) and one past it, where each now runs on grid.x or in
+    chunks: K1, K2 and K2b at N images of (2, 3, 33), f32; K3f and K3b at
+    W windows of 4 tokens, one head of 2, rate 0.1; Lf, Ldkv and Ldq at
+    N·heads (Lq 3, Lk 5, d 8). Each is held to its plain version at the
+    limits of ``kernels``, ``window_attention_kernels`` and
+    ``flash_attention_kernels``, and every kernel's rerun is
+    bit-identical."""
+    checked = []
+    for i, count in enumerate((GRID_YZ, GRID_YZ + 1)):
+        x, do, a_h, a_w = gates(torch, (count, 2, 3, 33), torch.float32,
+                                600 + i)
+        e1, e2 = check_kernels(torch, cf, x, a_h, a_w)
+        e3 = check_gate_dots(torch, cf, do, a_h, a_w)
+        same = dict(gate_add=torch.equal(cf.gate_add(x, a_h, a_w),
+                                         cf.gate_add(x, a_h, a_w)))
+        del x, do, a_h, a_w
+        inputs = wa_inputs(torch, count, 4, 2, 1, torch.float32, 610 + i)
+        e4, e5 = check_window_attention(torch, wa, inputs, 1, 0.1)
+        q, k, v, bias_e, sd, _ = inputs
+        same['window_attention'] = torch.equal(
+            wa.window_attention(q, k, v, bias_e, sd, 1, 1.0, 0.1),
+            wa.window_attention(q, k, v, bias_e, sd, 1, 1.0, 0.1))
+        del inputs, q, k, v, bias_e, sd
+        n, h = (count, 1) if count % 2 else (count // 2, 2)
+        e6, e7, e8 = check_flash(torch, fa, *fa_inputs(
+            torch, n, h, 3, 5, 8, 620 + i), 8 ** -0.5)
+        if not all(same.values()):
+            raise AssertionError(f'launch_limits {count}: reruns differ '
+                                 f'{same}')
+        checked.append(dict(
+            count=count, coordatt_shape=[count, 2, 3, 33],
+            window_shape=[count, 4, 2], flash_shape=[n, h, 3, 5, 8],
+            **{f'{name}_err': e for name, e in zip(
+                KERNELS[:8], (e1, e2, e3, e4, e5, e6, e7, e8))}))
+        torch.cuda.empty_cache()
+    emit('launch_limits', ok=True, checked=checked,
+         axes='K1/K2b: N images (a 1-D grid of N * bands * ceil(C / 32) '
+              'blocks), K2 (N * H); K3f/K3b: W windows (grid.y = ceil(W / '
+              'windows a block) <= 16384, K3b in at most 64 chunks); '
+              'Lf/Ldkv/Ldq: N·heads (a 1-D grid of N·heads·row tiles)',
+         tolerance='as kernels, window_attention_kernels and '
+                   'flash_attention_kernels; every kernel\'s rerun '
+                   'bit-identical')
+
+
+def logit_measures(got, want):
+    """got against want, (1, H, W, 2) f32 logits: the largest error over
+    the largest |logit|, the class margin's largest error over its spread
+    (std), the argmax agreement and the class-1 share."""
+    margin = want[..., 1] - want[..., 0]
+    margin_err = ((got[..., 1] - got[..., 0]) - margin).abs().max().item()
+    err, top = (got - want).abs().max().item(), want.abs().max().item()
+    return dict(
+        max_abs_err=err, logits_abs_max=top, logit_err_over_max=err / top,
+        margin_std=margin.std().item(), margin_max_abs_err=margin_err,
+        margin_err_over_spread=margin_err / margin.std().item(),
+        argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float().mean()
+        .item(),
+        class1_share=(margin > 0).float().mean().item())
+
+
+def phase_tf32_check(torch, model, cpu_model_fn, tf32):
+    """STC-UNet (einsum) at 512², whole and slide (crop 256, stride 170),
+    one f32 image: the card at the TF32 setting ``tf32`` (label, cudnn,
+    matmul), the flags a caller of ``init_segmentor`` runs with, against
+    the port on the CPU in f32. Its limits (``TF32_LIMITS``) were set
+    before its first run: the largest logit error within 1e-2 of the
+    largest |logit|, the class margin's within 0.1 of its spread (std),
+    the argmax agreeing on 0.999 of the pixels."""
+    label, cudnn, matmul = tf32
+    img = torch.rand((1, 512, 512, 3),
+                     generator=torch.Generator().manual_seed(8))
+    cpu = cpu_model_fn()
+    modes, faults = {}, []
+    for mode in ('whole', 'slide'):
+        model.test_cfg = cpu.test_cfg = (dict(SLIDE) if mode == 'slide'
+                                         else dict(mode='whole'))
+        fn = 'slide_inference' if mode == 'slide' else 'whole_inference'
+        set_tf32(torch, cudnn, matmul)
+        got = getattr(model, fn)(img.cuda(), None, False).float().cpu()
+        set_tf32(torch, False, False)
+        want = getattr(cpu, fn)(img, None, False)
+        modes[mode] = m = logit_measures(got, want)
+        for key, limit in TF32_LIMITS.items():
+            bad = (m[key] < limit if key == 'argmax_agreement'
+                   else m[key] > limit)
+            if bad:
+                faults.append(f'{mode} {key} {m[key]} past {limit}')
+    del cpu
+    emit('tf32_check', ok=not faults, faults=faults, tf32=label,
+         cudnn_allow_tf32=cudnn, matmul_allow_tf32=matmul, size=512,
+         image='float32', config=STC_CONFIG, modes=modes,
+         limits=TF32_LIMITS)
+    if faults:
+        raise AssertionError(f'tf32_check: {faults}')
 
 
 def phase_coordatt_probe(torch, kern):
@@ -817,26 +956,19 @@ def compare_logits(torch, got, want):
     """got against want, (1, 256, 256, 2) f32 logits of one image in whole
     mode: rtol/atol 1e-5, the class margin within 1e-3 of its spread, the
     argmax agreeing on 0.999 of the pixels. Raises, or returns the
-    measures."""
-    max_err = (got - want).abs().max().item()
-    margin = want[..., 1] - want[..., 0]
-    margin_err = ((got[..., 1] - got[..., 0]) - margin).abs().max().item()
-    margin_std = margin.std().item()
+    measures (``logit_measures``)."""
+    m = logit_measures(got, want)
     # The seeded models' logits are small (STC-UNet: |max| ~0.2) and their
     # class margins spread ~1e-2, so the limits are set against those, not
     # against 1.
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    if margin_err > 1e-3 * margin_std:
-        raise AssertionError(f'class margin off by {margin_err}, over 1e-3 '
-                             f'of its spread {margin_std}')
-    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    if agree < 0.999:
-        raise AssertionError(f'argmax agreement {agree} < 0.999')
-    return dict(size=256, mode='whole', dtype='float32',
-                max_abs_err=max_err, argmax_agreement=agree,
-                logits_abs_max=want.abs().max().item(),
-                margin_std=margin_std, margin_max_abs_err=margin_err,
-                class1_share=(margin > 0).float().mean().item(),
+    if m['margin_max_abs_err'] > 1e-3 * m['margin_std']:
+        raise AssertionError(f'class margin off by {m["margin_max_abs_err"]}'
+                             f', over 1e-3 of its spread {m["margin_std"]}')
+    if m['argmax_agreement'] < 0.999:
+        raise AssertionError(f'argmax agreement {m["argmax_agreement"]} < '
+                             f'0.999')
+    return dict(size=256, mode='whole', dtype='float32', **m,
                 tolerance='logits rtol 1e-5 atol 1e-5; class margin within '
                           '1e-3 of its std; argmax >= 0.999')
 
@@ -1377,6 +1509,7 @@ def main(argv=None):
     err.update(phase_window_attention_kernels(torch, wa))
     err.update(phase_flash_attention_kernels(
         torch, fa, str(libs['flash_attention']['path'])))
+    phase_launch_limits(torch, cf, wa, fa)
     modules = dict(**dict.fromkeys(CF_KERNELS, cf),
                    **dict.fromkeys(WA_KERNELS, wa),
                    **dict.fromkeys(FA_KERNELS, fa), dual_pools=dp)
@@ -1402,6 +1535,8 @@ def main(argv=None):
 
     launches = phase_slice(torch, kern, model, cpu_model(stc_cfg, model),
                            STC_CONFIG, ('slide', 'whole'), STC_FORWARD)
+    phase_tf32_check(torch, model, cpu_model(stc_cfg, model),
+                     ('torch default',) + default_tf32)
 
     # 5. timing
     stc_rows = phase_timing(torch, model, [('off', False, False),
@@ -1480,7 +1615,7 @@ def main(argv=None):
 
     # the kernels of every path: the times of one forward's (K1, K2, K3f,
     # Lf) or one step's (K2b, K3b, Ldkv, Ldq) launches at the timed shapes;
-    # P's over the probe's four stages. Ldkv's and Ldq's bound is that of
+    # P's over the probe's four stages. The L kernels' bound is that of
     # the type they compute in, 3xTF32 on the tensor cores.
     kernels = []
     for name in KERNELS:

@@ -48,6 +48,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -72,21 +73,24 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Pass 1 of K1 (kDots false) and of K2b (kDots true). Grid (ceil(C / 32),
-// bands, N), block (32, 8). K1: row_out = sum over W of x, col_out = the
+// Pass 1 of K1 (kDots false) and of K2b (kDots true). Grid N * bands *
+// ceil(C / 32) in that order, channel blocks fastest (a 1-D grid, so N may
+// pass 65535); block (32, 8). K1: row_out = sum over W of x, col_out = the
 // band's sum over H of x. K2b: x is do, row_out = sum over W of do * a_w,
 // col_out = the band's sum over H of do * a_h.
 template <typename T, bool kDots>
 __global__ void __launch_bounds__(kPoolLanes * kPoolTy)
 strip_band(const T* __restrict__ x, const T* __restrict__ a_h,
            const T* __restrict__ a_w, float* __restrict__ row_out,
-           float* __restrict__ col_out, int H, int W, int C) {
+           float* __restrict__ col_out, int bands, int H, int W, int C) {
   __shared__ float part[kPoolTy][kPoolChunk][kPoolLanes];
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c0 = blockIdx.x * kPoolLanes;
+  const int cblocks = (C + kPoolLanes - 1) / kPoolLanes;
+  const int64_t nb = blockIdx.x / cblocks;  // n * bands + band
+  const int c0 = (int)(blockIdx.x - nb * cblocks) * kPoolLanes;
   const int c = c0 + tx;
-  const int band = blockIdx.y, bands = gridDim.y;
-  const int64_t n = blockIdx.z;
+  const int64_t n = nb / bands;
+  const int band = (int)(nb - n * bands);
   const int h0 = band * kPoolBand;
   const bool c_ok = c < C;
   const int64_t row = (int64_t)W * C;
@@ -201,6 +205,13 @@ gate_add_rows(const T* __restrict__ x, const T* __restrict__ a_h,
   }
 }
 
+// Whether a strip launch is refused: bands must be ceil(H / 64), and the
+// grid of N * bands * ceil(C / 32) blocks within the launch limit.
+bool bad_strip(int bands, int N, int H, int C) {
+  return bands != (H + kPoolBand - 1) / kPoolBand ||
+         (long long)N * bands * ((C + kPoolLanes - 1) / kPoolLanes) > INT_MAX;
+}
+
 // Both passes of K1 (kDots false) or K2b (kDots true).
 template <typename T, bool kDots>
 void launch_strip(const void* x, const void* a_h, const void* a_w,
@@ -208,12 +219,12 @@ void launch_strip(const void* x, const void* a_h, const void* a_w,
                   int N, int H, int W, int C, cudaStream_t s) {
   float* col = bands == 1 ? static_cast<float*>(col_out)
                           : static_cast<float*>(scratch);
-  const dim3 grid((C + kPoolLanes - 1) / kPoolLanes, bands, N);
+  const dim3 grid(N * bands * ((C + kPoolLanes - 1) / kPoolLanes));
   const dim3 block(kPoolLanes, kPoolTy);
   strip_band<T, kDots><<<grid, block, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(a_h),
-      static_cast<const T*>(a_w), static_cast<float*>(row_out), col, H, W,
-      C);
+      static_cast<const T*>(a_w), static_cast<float*>(row_out), col, bands,
+      H, W, C);
   if (bands > 1) {
     const int64_t wc = (int64_t)W * C, total = (int64_t)N * wc;
     const int64_t want = (total + 255) / 256;
@@ -237,12 +248,13 @@ extern "C" {
 
 // bands: ceil(H / 64), the caller's count of 64-row bands; it sizes the
 // scratch (N, bands, W, C) f32 that the first pass fills when bands > 1.
-// Any other count is refused with cudaErrorInvalidValue, before a launch.
+// Any other count, or a grid past the launch limit (N * bands * ceil(C /
+// 32) over 2^31 - 1 blocks), is refused with cudaErrorInvalidValue, before
+// a launch.
 int stc_strip_pools(const void* x, void* sum_w, void* sum_h, void* scratch,
                     int dtype, int bands, int N, int H, int W, int C,
                     void* stream) {
-  if (bands != (H + kPoolBand - 1) / kPoolBand)
-    return (int)cudaErrorInvalidValue;
+  if (bad_strip(bands, N, H, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     launch_strip<float, false>(x, nullptr, nullptr, sum_w, sum_h, scratch,
@@ -259,8 +271,7 @@ int stc_strip_pools(const void* x, void* sum_w, void* sum_h, void* scratch,
 int stc_gate_dots(const void* d_out, const void* a_h, const void* a_w,
                   void* dh, void* dw, void* scratch, int dtype, int bands,
                   int N, int H, int W, int C, void* stream) {
-  if (bands != (H + kPoolBand - 1) / kPoolBand)
-    return (int)cudaErrorInvalidValue;
+  if (bad_strip(bands, N, H, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     launch_strip<float, true>(d_out, a_h, a_w, dh, dw, scratch, bands, N, H,
@@ -272,10 +283,12 @@ int stc_gate_dots(const void* d_out, const void* a_h, const void* a_w,
 }
 
 // vec: 1 for 16-byte vectors (C a multiple of 16 / itemsize and every
-// pointer 16-byte aligned), 0 for the scalar path.
+// pointer 16-byte aligned), 0 for the scalar path. N * H is the grid:
+// past 2^31 - 1 rows it is refused.
 int stc_gate_add(const void* x, const void* a_h, const void* a_w, void* out,
                  int dtype, int vec, int N, int H, int W, int C,
                  void* stream) {
+  if ((long long)N * H > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (vec)

@@ -18,42 +18,20 @@
 // q, k, v and do are (N, H, L, d) with any element strides of N, H and L and
 // a contiguous last axis (the model's are views of (N, L, H*d) rows); o,
 // lse, dq, dk and dv are written contiguous. d is 1..256; Lq and Lk are any
-// length: the TPU's multiple-of-128 blocks are a tiling of the library, not
-// part of the function.
+// length: the TPU's multiple-of-128 blocks are a tiling of the library,
+// not part of the function. Every launch is a 1-D grid of N * H * (row
+// tiles) blocks, the tiles of one (n, h) next to each other (so that the
+// blocks running together share their streamed rows in L2), up to 2^31 - 1.
 //
-// What bounds Lf on an H100 SXM. The STC transformer has 2 heads of d =
-// 256. At whole B=8 (x4: L = 4096, x5: L = 1024, 4 layers each) one
-// forward's eight Lf calls take 2 L x L x d products each, 1.17e12 flop in
-// all: 17.4 ms at the 67 TFLOP/s f32 rate outside the tensor cores, against
-// 0.3 ms of exponentials and about 0.1 ms of bytes. So Lf is bound by its
-// f32 products. Every product is an f32 FMA, not TF32: the kernels are held
-// to the CPU's f32 results.
-//
-// Lf's design (a first version, right before fast): CUDA-core FMAs on tiles
-// in shared memory. A block has 256 threads as 16 x 16 (ty, tx); each
-// product C = A B over a tile gives thread (ty, tx) the rows ty + 16 i and
-// the columns tx + 16 j of C, in registers (tile_fma). Along a row of C the
-// threads of a half-warp read 16 neighbouring columns of B (unit or odd
-// stride: no bank conflicts) and the two rows of A of a warp lie in other
-// banks (odd row strides), so each shared load feeds 2 to 4 FMAs per value.
-// The head dimension is padded to DP = 16 NC in shared memory, with NC in
-// {1, 2, 4, 8, 16} chosen from d; the products over d stop at d.
-//
-// Lf: a block takes 64 query rows of one (n, h) and walks the keys in tiles
-// of 32: s (64 x 32, 8 per thread), the online softmax (row max and sum over
-// the 16 threads of a row by shuffles), then o += p v with o in registers
-// (64 x DP, 4 x NC per thread). q stays in shared memory; k^T and then v
-// take turns in one buffer (108 KB in all at d = 256). It never forms the
-// L x L matrix and stores only o and lse. ptxas gives it up to 163
-// registers a thread and no spills; above 128, an SM holds one block of 8
-// warps, too few to hide the shared-memory latency.
-//
-// Ldkv and Ldq, on the tensor cores. Ldkv runs 4 products a tile (s, dp,
-// dv, dk), Ldq 3 (s, dp, dq): 2.34e12 and 1.75e12 flop per B=8 train step.
-// Each is done in 3xTF32 (below), three TF32 products per f32 product, at
-// the 495 TFLOP/s TF32 tensor-core rate: 14.2 and 10.6 ms per step. That is
-// their bound; the exponentials (each kernel recomputes p, 1.1e9 a step at
-// 16 per SM per clock) take about 0.3 ms, and their bytes about 0.5 ms.
+// What bounds them on an H100 SXM. The STC transformer has 2 heads of d =
+// 256. Lf runs 2 products a key tile (s, then p v), Ldkv 4 (s, dp, dv, dk),
+// Ldq 3 (s, dp, dq): at whole B=8 (x4: L = 4096, x5: L = 1024, 4 layers
+// each) 1.17e12 flop per forward, and 2.34e12 and 1.75e12 per train step.
+// Each product is done in 3xTF32 (below), three TF32 products per f32
+// product, at the 495 TFLOP/s TF32 tensor-core rate: 7.1, 14.2 and 10.6 ms.
+// That is their bound; the exponentials (each kernel takes p, 1.1e9 a step
+// at 16 per SM per clock) take about 0.3 ms, and their bytes about 0.1 to
+// 0.5 ms.
 //
 // Why 3xTF32 and not TF32. TF32 keeps 10 mantissa bits. The kernels are
 // held to f32 (rtol 1e-4, atol 1e-5 of the largest value) and so is the
@@ -63,46 +41,68 @@
 // operand x is split as it is loaded from shared memory into hi = tf32(x)
 // (to nearest) and lo = x - hi, and a product is lo.hi + hi.lo + hi.hi
 // (CUTLASS's OpMultiplyAddFastF32). The split never depends on torch's
-// TF32 flags. The MMA's own f32 sum rounds toward zero; over 4096 rows one
-// chain of them (about 1500 sums, each off by up to 2^-24 of the total, all
-// the same way) drifts to about 1e-4, so every 32 columns (scores) or 32
-// rows (gradients) are summed in fresh accumulators and then added in f32.
+// TF32 flags. The MMA's own f32 sum rounds toward zero; over 4096 rows or
+// keys one chain of them (about 1500 sums, each off by up to 2^-24 of the
+// total, all the same way) drifts to about 1e-4, so every 32 columns
+// (scores), 32 rows (gradients) or 32 keys (o) are summed in fresh
+// accumulators and then added in f32.
 //
-// Their design. A block of 8 warps owns a tile of 32 keys (Ldkv) or 32
-// query rows (Ldq), kept in shared memory (k and v, or q and do), and
-// walks the other side in tiles of 32, streamed through a two-stage ring
-// by cp.async (16 bytes a thread where the rows are 16-byte aligned,
-// else 4; zero-filled past L and d), so the next tile is in flight while
-// this one is multiplied. Every product is mma.sync m16n8k8 row.col: the
-// score products s (k q^T in Ldkv, q k^T in Ldq) and dp take q, k, v and
-// do as stored rows, warps 0-3 computing s and warps 4-7 dp, each an m16
-// x n16 fragment over d. p = exp(s - lse) and ds = p (dp - di) scale are
-// staged in shared memory (32 x 32 each) as the A operand of the
-// gradient products, dv += p^T do and dk += ds^T q, or dq += ds k, which
-// read do, q or k as [k][n] tiles. Each warp accumulates those over 32
-// rows and every eighth column block of 8 in registers. Tiles are stored
-// with an XOR swizzle of the column's bits 2-4 by the row, so that both
-// the row-fragment reads (8 rows x 4 columns a warp) and the
-// column-fragment reads (4 rows x 8 columns) hit 32 banks. d is padded
-// with zeros to DP in {32, 64, 128, 256}, over which the products run. At
-// d = 256 a block takes 205 KB of shared memory: one block of 8 warps an
-// SM, two a scheduler, so up to 255 registers a thread and little to hide
-// latency with; ptxas must report no spills (chip_smoke.py's build line).
+// Every product is mma.sync m16n8k8 row.col on tiles in shared memory.
+// Tiles are stored with an XOR swizzle of the column's bits 2-4 by the
+// row, so that both the row-fragment reads (8 rows x 4 columns a warp) and
+// the column-fragment reads (4 rows x 8 columns) hit 32 banks; d is padded
+// with zeros to DP in {32, 64, 128, 256}, over which the products run.
+// Streamed tiles of 32 rows go through a two-stage ring by cp.async (16
+// bytes a thread where the rows are 16-byte aligned, else 4; zero-filled
+// past L and d), so the next tile is in flight while this one is
+// multiplied. Blocks have 8 warps; at DP = 256 a block takes 200 to 205 KB
+// of shared memory, so an SM holds one, two warps a scheduler, and up to
+// 255 registers a thread; ptxas must report no spills (chip_smoke.py's
+// build line). It gives Lf and Ldkv 255 registers at DP = 256 and Ldq 236
+// to 255 (113 to 221 at the narrower widths), and no spills.
+//
+// Lf's design. A block owns 64 query rows of one (n, h), kept in shared
+// memory, and walks the keys in tiles of 32 (k and v through the ring).
+// Warp w takes rows 16 (w / 2) .. + 15 and half w % 2: the 16 keys of
+// that half of each score tile, and the DP / 2 columns of that half of o.
+// Per tile: s = q k^T (an m16 x n16 fragment over DP, score_tile), the
+// scale and the mask past Lk; the row max of each warp's 16 keys goes
+// through shared memory to the other warp of the pair, so both take the
+// same m_new and alpha = exp(m_old - m_new); p = exp(s - m_new) is staged
+// in shared memory (64 x 32) as the A operand of p v; each warp keeps its
+// own half's row sum l = l alpha + sum p, and the two halves are added
+// once at the end. Each warp holds its 16 x DP/2 slice of o in registers
+// (64 at DP = 256) and, for each 8 columns of it, sums the tile's p v in a
+// fresh accumulator and then takes o = o alpha + part in f32 FMAs. It
+// writes o / l and lse = m + log l. 200.5 KB of shared memory at DP = 256:
+// q 64 KB, the k and v rings 128 KB, p 8 KB, the row exchange 0.5 KB.
+//
+// Ldkv and Ldq. A block owns a tile of 32 keys (Ldkv) or 32 query rows
+// (Ldq), kept in shared memory (k and v, or q and do), and walks the other
+// side in tiles of 32 through the ring. The score products s (k q^T in
+// Ldkv, q k^T in Ldq) and dp take q, k, v and do as stored rows, warps 0-3
+// computing s and warps 4-7 dp, each an m16 x n16 fragment over d. p =
+// exp(s - lse) and ds = p (dp - di) scale are staged in shared memory (32
+// x 32 each) as the A operand of the gradient products, dv += p^T do and
+// dk += ds^T q, or dq += ds k, which read do, q or k as [k][n] tiles. Each
+// warp accumulates those over 32 rows and every eighth column block of 8
+// in registers. 205 KB of shared memory at DP = 256.
+//
 // No atomics: every sum runs in a fixed order, so reruns are
-// bit-identical.
-//
-// Every entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError().
+// bit-identical. Every entry point launches on the caller's stream,
+// allocates nothing and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int kThreads = 256;     // 16 x 16 threads: ty = tid / 16
+constexpr int kThreads = 256;     // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 32;   // keys of an Ldkv block, rows of an Ldq block,
+                            // and the rows of every streamed tile
 constexpr int kFwdRows = 64;      // query rows of an Lf block
-constexpr int kKeys = 32;         // keys of a tile (Lf, Ldq), of a Ldkv block
-constexpr int kPad = kKeys + 1;   // odd row stride of the 32-wide tiles
 
 // One (N, H, L, d) input: its data and the element strides of N, H and L.
 struct Rows {
@@ -114,156 +114,9 @@ __device__ __forceinline__ const float* head_of(const Rows& t, int n, int h) {
   return t.p + n * t.sn + h * t.sh;
 }
 
-// acc[i][j] += sum_{k < K} A(ty + 16 i, k) B(k, tx + 16 j), with A(r, k) at
-// a[r * ar + k * ak] and B(k, c) at b[k * bk + c * bc] in shared memory.
-template <int TM, int TN>
-__device__ __forceinline__ void tile_fma(float (&acc)[TM][TN],
-                                         const float* a, int ar, int ak,
-                                         const float* b, int bk, int bc,
-                                         int K, int ty, int tx) {
-  for (int k = 0; k < K; ++k) {
-    float av[TM], bv[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) av[i] = a[(ty + 16 * i) * ar + k * ak];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) bv[j] = b[k * bk + (tx + 16 * j) * bc];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-template <int TM, int TN>
-__device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-}
-
-// Rows r0 .. r0 + R - 1 of src (row stride sl) into dst[r * ld + j], j < DP,
-// with zeros past row L or column d. Neighbouring threads take neighbouring
-// columns: coalesced reads, conflict-free writes.
-template <int DP>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
-                                          long long sl, int r0, int R, int L,
-                                          int d) {
-  for (int i = threadIdx.x; i < R * DP; i += kThreads) {
-    const int r = i / DP, j = i - r * DP;
-    dst[r * ld + j] = (r0 + r < L && j < d) ? src[(r0 + r) * sl + j] : 0.f;
-  }
-}
-
-// The same rows transposed, into dst[j * kPad + r] (R <= 32): the odd stride
-// keeps the writes of a warp, 32 neighbouring j, in 32 banks.
-template <int DP>
-__device__ __forceinline__ void load_cols(float* dst, const float* src,
-                                          long long sl, int r0, int R, int L,
-                                          int d) {
-  for (int i = threadIdx.x; i < R * DP; i += kThreads) {
-    const int r = i / DP, j = i - r * DP;
-    dst[j * kPad + r] = (r0 + r < L && j < d) ? src[(r0 + r) * sl + j] : 0.f;
-  }
-}
-
-// The max and the sum over the 16 threads of a half-warp (one row of a
-// tile). The butterfly leaves the same value in every lane.
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Lf. Grid (ceil(Lq / 64), N * H), 256 threads.
-template <int NC>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd(Rows q, Rows k, Rows v, float* __restrict__ o,
-          float* __restrict__ lse, int H, int Lq, int Lk, int d,
-          float scale) {
-  constexpr int DP = 16 * NC;
-  extern __shared__ float smem[];
-  float* qs = smem;                       // q: kFwdRows x (DP + 1)
-  float* kv = qs + kFwdRows * (DP + 1);   // k^T: DP x kPad, then v: kKeys x DP
-  float* ps = kv + DP * kPad;             // p: kFwdRows x kPad
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int bh = blockIdx.y, n = bh / H, h = bh - n * H;
-  const int q0 = blockIdx.x * kFwdRows;
-  const float* kb = head_of(k, n, h);
-  const float* vb = head_of(v, n, h);
-  load_rows<DP>(qs, DP + 1, head_of(q, n, h), q.sl, q0, kFwdRows, Lq, d);
-  float acc[4][NC], m[4], l[4];
-  zero(acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
-  }
-  for (int k0 = 0; k0 < Lk; k0 += kKeys) {
-    __syncthreads();  // q is in; the previous tile is done with kv and ps
-    load_cols<DP>(kv, kb, k.sl, k0, kKeys, Lk, d);
-    __syncthreads();
-    float s[4][2];
-    zero(s);
-    tile_fma<4, 2>(s, qs, DP + 1, 1, kv, kPad, 1, d, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[i][j] = k0 + tx + 16 * j < Lk ? s[i][j] * scale : -CUDART_INF_F;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // key k0 < Lk is in every tile, so m_new is finite; on the first
-      // tile m[i] = -inf and alpha = 0
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(ty + 16 * i) * kPad + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();  // k^T is no longer needed; p is in
-    load_rows<DP>(kv, DP, vb, v.sl, k0, kKeys, Lk, d);
-    __syncthreads();
-    tile_fma<4, NC>(acc, ps, kPad, 1, kv, DP, 1, min(kKeys, Lk - k0), ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= Lq) continue;
-    const float inv = 1.f / l[i];
-    float* orow = o + ((size_t)bh * Lq + r) * d;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int j = tx + 16 * c;
-      if (j < d) orow[j] = acc[i][c] * inv;
-    }
-    if (tx == 0) lse[(size_t)bh * Lq + r] = m[i] + logf(l[i]);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Ldkv and Ldq: 3xTF32 mma.sync on tiles streamed by cp.async
+// 3xTF32 mma.sync on tiles streamed by cp.async
 // ---------------------------------------------------------------------------
-
-constexpr int kTile = 32;   // keys of an Ldkv block, rows of an Ldq block,
-                            // and the rows of every streamed tile
-constexpr int kWarps = kThreads / 32;
 
 // Tiles of ld floats a row (ld a multiple of 32) keep element (r, c) at
 // r * ld + (c ^ swz(r)): bits 2-4 of the column are flipped by rows mod 8,
@@ -535,7 +388,140 @@ __device__ __forceinline__ void store_grad(const float (&acc)[NT][2][4],
   }
 }
 
-// Ldkv. Grid (ceil(Lk / 32), N * H), 256 threads.
+// Lf. Grid N * H * ceil(Lq / 64), 256 threads.
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tc(Rows q, Rows k, Rows v, float* __restrict__ o,
+             float* __restrict__ lse, int H, int Lq, int Lk, int d,
+             float scale) {
+  constexpr int T = kTile * DP;
+  constexpr int NB = DP / 16;  // n8 blocks of this warp's half of o
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // q: [64][DP], resident
+  float* kst = qs + 2 * T;                       // k: 2 stages of [32][DP]
+  float* vst = kst + 2 * T;                      // v: 2 stages
+  float* ps = vst + 2 * T;                       // p: [64 rows][32 keys]
+  float* red = ps + kFwdRows * kTile;            // [half][row]: max, then l
+  const int warp = threadIdx.x >> 5;
+  const Lane L = lane_of();
+  const int tiles = (Lq + kFwdRows - 1) / kFwdRows;
+  const int bh = blockIdx.x / tiles, n = bh / H, h = bh - n * H;
+  const int q0 = (blockIdx.x - bh * tiles) * kFwdRows;
+  const float* qb = head_of(q, n, h);
+  const float* kb = head_of(k, n, h);
+  const float* vb = head_of(v, n, h);
+  stage_rows<DP, VEC>(qs, qb, q.sl, q0, Lq, d);
+  stage_rows<DP, VEC>(qs + T, qb, q.sl, q0 + kTile, Lq, d);
+  stage_rows<DP, VEC>(kst, kb, k.sl, 0, Lk, d);
+  stage_rows<DP, VEC>(vst, vb, v.sl, 0, Lk, d);
+  cp_async_commit();
+  // this warp: rows m0 + g and m0 + g + 8 (i = 0, 1) of the block; keys
+  // n0 .. n0 + 15 of each tile; columns c0 .. c0 + DP/2 - 1 of o
+  const int half = warp & 1;
+  const int m0 = (warp >> 1) * 16, n0 = 16 * half, c0 = half * (DP / 2);
+  float acc[NB][4] = {};
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  for (int t = 0, k0 = 0; k0 < Lk; ++t, k0 += kTile) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    const int cur = t & 1, nxt = cur ^ 1;
+    const int k1 = k0 + kTile;
+    if (k1 < Lk) {
+      stage_rows<DP, VEC>(kst + nxt * T, kb, k.sl, k1, Lk, d);
+      stage_rows<DP, VEC>(vst + nxt * T, vb, v.sl, k1, Lk, d);
+      cp_async_commit();
+    }
+    const float* ks = kst + cur * T;
+    const float* vs = vst + cur * T;
+    float s[2][4];
+    score_tile<DP>(s, qs, ks, m0, n0, L);
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + n0 + 8 * j + 2 * L.c + (e & 1);
+        s[j][e] = key < Lk ? s[j][e] * scale : -CUDART_INF_F;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    // the max over the 4 lanes of a row, then over the pair of warps; key
+    // k0 < Lk is in every tile, so m_new is finite, and on the first tile
+    // m = -inf gives alpha = 0
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      if (L.c == 0) red[half * kFwdRows + m0 + L.g + 8 * i] = mx[i];
+    }
+    __syncthreads();
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = m0 + L.g + 8 * i;
+      const float m_new = fmaxf(m[i], fmaxf(red[r], red[kFwdRows + r]));
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float p = expf(s[j][e] - m[i]);
+        ps[at(m0 + L.g + 8 * i, n0 + 8 * j + 2 * L.c + (e & 1), kTile)] = p;
+        sum[i] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * alpha[i] + sum[i];
+    }
+    __syncthreads();  // p is in
+    // o = o alpha + p v: p (16 rows x 32 keys) as A, v as [k][n] tiles
+    FragA fp[kTile / 8];
+#pragma unroll
+    for (int kk = 0; kk < kTile / 8; ++kk)
+      load_a(fp[kk], ps, kTile, m0, 0, kk, L);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      float part[4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kTile / 8; ++kk) {
+        FragB fb;
+        load_b_kn(fb, vs, DP, kk, c0 + 8 * b, L);
+        mma3(part, fp[kk], fb);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[b][e] = fmaf(acc[b][e], alpha[e >> 1], part[e]);
+    }
+  }
+  // l: this warp's half plus the other's, in a fixed order
+  __syncthreads();  // every warp is done with the last tile's row maxes
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (L.c == 0) red[half * kFwdRows + m0 + L.g + 8 * i] = l[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int rb = m0 + L.g + 8 * i, r = q0 + rb;
+    if (r >= Lq) continue;
+    const float total = red[rb] + red[kFwdRows + rb];
+    float* orow = o + ((size_t)bh * Lq + r) * d;
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int e = 2 * i; e < 2 * i + 2; ++e) {
+        const int col = c0 + 8 * b + 2 * L.c + (e & 1);
+        if (col < d) orow[col] = acc[b][e] / total;
+      }
+    if (half == 0 && L.c == 0)
+      lse[(size_t)bh * Lq + r] = m[i] + logf(total);
+  }
+}
+
+// Ldkv. Grid N * H * ceil(Lk / 32), 256 threads.
 template <int DP, bool VEC>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_tc(Rows q, Rows k, Rows v, Rows dout,
@@ -555,8 +541,9 @@ flash_bwd_dkv_tc(Rows q, Rows k, Rows v, Rows dout,
   float* dist = lst + 2 * kTile;                 // di: 2 stages of 32
   const int warp = threadIdx.x >> 5;
   const Lane L = lane_of();
-  const int bh = blockIdx.y, n = bh / H, h = bh - n * H;
-  const int k0 = blockIdx.x * kTile;
+  const int tiles = (Lk + kTile - 1) / kTile;
+  const int bh = blockIdx.x / tiles, n = bh / H, h = bh - n * H;
+  const int k0 = (blockIdx.x - bh * tiles) * kTile;
   const float* qb = head_of(q, n, h);
   const float* dob = head_of(dout, n, h);
   const float* lb = lse + (size_t)bh * Lq;
@@ -617,7 +604,7 @@ flash_bwd_dkv_tc(Rows q, Rows k, Rows v, Rows dout,
   store_grad<DP, NT>(adv, dvb, k0, Lk, d, warp, L);
 }
 
-// Ldq. Grid (ceil(Lq / 32), N * H), 256 threads.
+// Ldq. Grid N * H * ceil(Lq / 32), 256 threads.
 template <int DP, bool VEC>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_tc(Rows q, Rows k, Rows v, Rows dout,
@@ -637,8 +624,9 @@ flash_bwd_dq_tc(Rows q, Rows k, Rows v, Rows dout,
   float* dis = ls + kTile;                       // di of the block's rows
   const int warp = threadIdx.x >> 5;
   const Lane L = lane_of();
-  const int bh = blockIdx.y, n = bh / H, h = bh - n * H;
-  const int q0 = blockIdx.x * kTile;
+  const int tiles = (Lq + kTile - 1) / kTile;
+  const int bh = blockIdx.x / tiles, n = bh / H, h = bh - n * H;
+  const int q0 = (blockIdx.x - bh * tiles) * kTile;
   const float* kb = head_of(k, n, h);
   const float* vb = head_of(v, n, h);
   stage_rows<DP, VEC>(qs, head_of(q, n, h), q.sl, q0, Lq, d);
@@ -688,8 +676,11 @@ flash_bwd_dq_tc(Rows q, Rows k, Rows v, Rows dout,
   store_grad<DP, NT>(adq, dq + (size_t)bh * Lq * d, q0, Lq, d, warp, L);
 }
 
+// Lf's shared memory: q, two stages of k and of v, p and the row exchange
+// (200.5 KB at DP = 256).
 size_t fwd_smem(int DP) {
-  return sizeof(float) * (kFwdRows * (DP + 1) + DP * kPad + kFwdRows * kPad);
+  return sizeof(float) *
+         (6 * kTile * DP + kFwdRows * kTile + 2 * kFwdRows);
 }
 
 // Ldkv's and Ldq's shared memory: two resident [32][DP] tiles, two stages
@@ -705,45 +696,16 @@ size_t dq_smem(int DP) {
          (6 * kTile * DP + 2 * kTile * kTile + 2 * kTile);
 }
 
-// The instantiation for head dimension d: NC with d <= 16 NC, else 0.
-int nc_for(int d) {
-  if (d < 1) return 0;
-  if (d <= 16) return 1;
-  if (d <= 32) return 2;
-  if (d <= 64) return 4;
-  if (d <= 128) return 8;
-  if (d <= 256) return 16;
-  return 0;
-}
-
-bool bad_shape(int N, int H, int Lq, int Lk, int d) {
-  return N < 1 || H < 1 || (long long)N * H > 65535 || Lq < 1 || Lk < 1 ||
-         nc_for(d) == 0;
-}
-
-// Above 48 KB a kernel's dynamic shared memory must be allowed first.
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-template <int NC>
-int fwd(Rows q, Rows k, Rows v, float* o, float* lse, int N, int H, int Lq,
-        int Lk, int d, float scale, cudaStream_t s) {
-  const size_t bytes = fwd_smem(16 * NC);
-  const int err = allow_smem(flash_fwd<NC>, bytes);
-  if (err) return err;
-  const dim3 grid((Lq + kFwdRows - 1) / kFwdRows, N * H);
-  flash_fwd<NC><<<grid, kThreads, bytes, s>>>(q, k, v, o, lse, H, Lq, Lk, d,
-                                              scale);
-  return (int)cudaGetLastError();
-}
-
-// The backward's padded head width for d: 32, 64, 128 or 256 (the swizzle
-// needs rows of at least 32 floats).
+// The padded head width for d: 32, 64, 128 or 256 (the swizzle needs rows
+// of at least 32 floats).
 int dp_for(int d) {
   return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+
+// The grids hold N * H * (tiles of 32 rows, at most) blocks, up to 2^31 - 1.
+bool bad_shape(int N, int H, int Lq, int Lk, int d) {
+  return N < 1 || H < 1 || Lq < 1 || Lk < 1 || d < 1 || d > 256 ||
+         (long long)N * H * ((max(Lq, Lk) + kTile - 1) / kTile) > INT_MAX;
 }
 
 // Whether every (N, H, L) row of t starts on 16 bytes, for 16-byte copies.
@@ -752,71 +714,25 @@ bool aligned16(const Rows& t) {
          t.sn % 4 == 0 && t.sh % 4 == 0 && t.sl % 4 == 0;
 }
 
-template <int DP, bool VEC>
-int dkv_launch(Rows q, Rows k, Rows v, Rows dout, const float* lse,
-               const float* di, float* dk, float* dv, int N, int H, int Lq,
-               int Lk, int d, float scale, cudaStream_t s) {
-  const size_t bytes = dkv_smem(DP);
-  const int err = allow_smem(flash_bwd_dkv_tc<DP, VEC>, bytes);
-  if (err) return err;
-  const dim3 grid((Lk + kTile - 1) / kTile, N * H);
-  flash_bwd_dkv_tc<DP, VEC><<<grid, kThreads, bytes, s>>>(
-      q, k, v, dout, lse, di, dk, dv, H, Lq, Lk, d, scale);
+// One launch of 256 threads with `bytes` of dynamic shared memory, allowed
+// first (above 48 KB it must be).
+template <typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), size_t bytes, dim3 grid,
+           cudaStream_t s, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, bytes, s>>>(args...);
   return (int)cudaGetLastError();
-}
-
-template <int DP>
-int dkv(Rows q, Rows k, Rows v, Rows dout, const float* lse, const float* di,
-        float* dk, float* dv, int N, int H, int Lq, int Lk, int d,
-        float scale, cudaStream_t s) {
-  return aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)
-             ? dkv_launch<DP, true>(q, k, v, dout, lse, di, dk, dv, N, H, Lq,
-                                    Lk, d, scale, s)
-             : dkv_launch<DP, false>(q, k, v, dout, lse, di, dk, dv, N, H,
-                                     Lq, Lk, d, scale, s);
-}
-
-template <int DP, bool VEC>
-int dq_launch(Rows q, Rows k, Rows v, Rows dout, const float* lse,
-              const float* di, float* dqp, int N, int H, int Lq, int Lk,
-              int d, float scale, cudaStream_t s) {
-  const size_t bytes = dq_smem(DP);
-  const int err = allow_smem(flash_bwd_dq_tc<DP, VEC>, bytes);
-  if (err) return err;
-  const dim3 grid((Lq + kTile - 1) / kTile, N * H);
-  flash_bwd_dq_tc<DP, VEC><<<grid, kThreads, bytes, s>>>(
-      q, k, v, dout, lse, di, dqp, H, Lq, Lk, d, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int DP>
-int dq(Rows q, Rows k, Rows v, Rows dout, const float* lse, const float* di,
-       float* dqp, int N, int H, int Lq, int Lk, int d, float scale,
-       cudaStream_t s) {
-  return aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)
-             ? dq_launch<DP, true>(q, k, v, dout, lse, di, dqp, N, H, Lq, Lk,
-                                   d, scale, s)
-             : dq_launch<DP, false>(q, k, v, dout, lse, di, dqp, N, H, Lq,
-                                    Lk, d, scale, s);
 }
 
 #define STC_FA_DISPATCH(call) \
-  switch (nc_for(d)) {        \
-    case 1: return call(1);   \
-    case 2: return call(2);   \
-    case 4: return call(4);   \
-    case 8: return call(8);   \
-    case 16: return call(16); \
+  switch (dp_for(d)) {        \
+    case 32: return call(32);   \
+    case 64: return call(64);   \
+    case 128: return call(128); \
+    case 256: return call(256); \
   }                           \
-  return (int)cudaErrorInvalidValue;
-
-#define STC_FA_BWD_DISPATCH(call) \
-  switch (dp_for(d)) {            \
-    case 32: return call(32);     \
-    case 64: return call(64);     \
-    case 128: return call(128);   \
-    case 256: return call(256);   \
-  }                               \
   return (int)cudaErrorInvalidValue;
 
 Rows rows(const void* p, long long sn, long long sh, long long sl) {
@@ -842,7 +758,11 @@ int stc_flash_attention_fwd(const void* q, long long qsn, long long qsh,
   float* op = static_cast<float*>(o);
   float* lp = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define STC_FA_FWD(nc) fwd<nc>(rq, rk, rv, op, lp, N, H, Lq, Lk, d, scale, s)
+  const bool vec = aligned16(rq) && aligned16(rk) && aligned16(rv);
+  const dim3 grid(N * H * ((Lq + kFwdRows - 1) / kFwdRows));
+#define STC_FA_FWD(dp)                                                     \
+  launch(vec ? flash_fwd_tc<dp, true> : flash_fwd_tc<dp, false>,           \
+         fwd_smem(dp), grid, s, rq, rk, rv, op, lp, H, Lq, Lk, d, scale)
   STC_FA_DISPATCH(STC_FA_FWD)
 #undef STC_FA_FWD
 }
@@ -864,9 +784,14 @@ int stc_flash_attention_bwd_dkv(
   float* dkp = static_cast<float*>(dk);
   float* dvp = static_cast<float*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define STC_FA_DKV(width) \
-  dkv<width>(rq, rk, rv, rd, lp, dp, dkp, dvp, N, H, Lq, Lk, d, scale, s)
-  STC_FA_BWD_DISPATCH(STC_FA_DKV)
+  const bool vec =
+      aligned16(rq) && aligned16(rk) && aligned16(rv) && aligned16(rd);
+  const dim3 grid(N * H * ((Lk + kTile - 1) / kTile));
+#define STC_FA_DKV(width)                                                    \
+  launch(vec ? flash_bwd_dkv_tc<width, true> : flash_bwd_dkv_tc<width, false>, \
+         dkv_smem(width), grid, s, rq, rk, rv, rd, lp, dp, dkp, dvp, H, Lq,  \
+         Lk, d, scale)
+  STC_FA_DISPATCH(STC_FA_DKV)
 #undef STC_FA_DKV
 }
 
@@ -884,9 +809,14 @@ int stc_flash_attention_bwd_dq(
   const float* dp = static_cast<const float*>(di);
   float* dqp = static_cast<float*>(dq_);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define STC_FA_DQ(width) \
-  dq<width>(rq, rk, rv, rd, lp, dp, dqp, N, H, Lq, Lk, d, scale, s)
-  STC_FA_BWD_DISPATCH(STC_FA_DQ)
+  const bool vec =
+      aligned16(rq) && aligned16(rk) && aligned16(rv) && aligned16(rd);
+  const dim3 grid(N * H * ((Lq + kTile - 1) / kTile));
+#define STC_FA_DQ(width)                                                     \
+  launch(vec ? flash_bwd_dq_tc<width, true> : flash_bwd_dq_tc<width, false>,  \
+         dq_smem(width), grid, s, rq, rk, rv, rd, lp, dp, dqp, H, Lq, Lk, d, \
+         scale)
+  STC_FA_DISPATCH(STC_FA_DQ)
 #undef STC_FA_DQ
 }
 

@@ -150,7 +150,7 @@ wa_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int n = threadIdx.x;
   const int C = H * D;
   const int lds = N + 1;
-  const int w_end = min(W, (int)(blockIdx.y + 1) * wpb);
+  const int w_end = (int)min((long long)W, (blockIdx.y + 1ll) * wpb);
   const uint64_t key = drop.on ? (uint64_t)seed[0] : 0ull;
   load_bias(bias_e, bs, N, H, h);  // the loop's first barrier publishes it
   for (int w = blockIdx.y * wpb; w < w_end; ++w) {
@@ -235,7 +235,7 @@ wa_bwd(const T* __restrict__ q, const T* __restrict__ k,
   float db[kMaxN];  // column tid of this block's dbias partial
 #pragma unroll
   for (int i = 0; i < kMaxN; ++i) db[i] = 0.f;
-  const int w_end = min(W, (int)(blockIdx.y + 1) * wpc);
+  const int w_end = (int)min((long long)W, (blockIdx.y + 1ll) * wpc);
   for (int w = blockIdx.y * wpc; w < w_end; ++w) {
     __syncthreads();  // phase 2 of the previous window is done
     if (tid < N) {
@@ -366,8 +366,9 @@ int launch_fwd(const void* q, const void* k, const void* v,
                const float* bias_e, const int64_t* seed, void* out, int W,
                int N, int H, int ld, float scale_q, Drop drop,
                cudaStream_t s) {
-  // about 8192 blocks in all: a few windows a block at the widest stage
-  const int wpb = max(1, (W * H) / 8192);
+  // about 8192 blocks in all: a few windows a block at the widest stage,
+  // so grid.y stays under 16384 for any W
+  const int wpb = (int)max(1ll, (long long)W * H / 8192);
   dim3 grid(H, (W + wpb - 1) / wpb);
   wa_fwd<T, D><<<grid, threads_for(N), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -435,7 +436,7 @@ int bwd_for(int D, const void* q, const void* k, const void* v,
 }
 
 bool bad_shape(int W, int N, int H, int D, int ld) {
-  return W < 1 || W > 65535 || N < 1 || N > kMaxN || H < 1 || H > 65535 ||
+  return W < 1 || N < 1 || N > kMaxN || H < 1 || H > 65535 ||
          D < 1 || ld < H * D;
 }
 

@@ -76,8 +76,7 @@ def _check_x(x):
     if x.dtype not in _DTYPES:
         raise TypeError(f'x must be float32 or bfloat16, got {x.dtype}')
     _check('x', x, x.shape, x.dtype, x.device)
-    n, h, w, c = x.shape
-    if n > 65535 or min(n, h, w, c) < 1:
+    if min(x.shape) < 1:
         raise ValueError(f'unsupported shape {tuple(x.shape)}')
 
 

@@ -16,18 +16,18 @@ calls when ``UnetBackbone(flash_attention=True)``
 - Ldq ``stc_flash_attention_bwd_dq`` ← ``_flash_attention_bwd_dq``: dq, a
   block per query tile walking the key tiles.
 
-All three are bound by their f32 products on the card. Lf computes them as
-f32 FMAs on the CUDA cores; Ldkv and Ldq on the tensor cores in 3xTF32
-(each operand split into two TF32 halves, three products summed in f32),
-which keeps f32 accuracy and does not read torch's TF32 flags. The source
-says what each design does about its bound. The backward's
-``di = Σ_d o·do`` is one plain reduction here, as the library forms it
-outside its kernels (``_flash_attention_bwd``).
+All three are bound by their f32 products on the card, and compute them
+on the tensor cores in 3xTF32 (each operand split into two TF32 halves,
+three products summed in f32), which keeps f32 accuracy and does not read
+torch's TF32 flags. The source says what each design does about its
+bound. The backward's ``di = Σ_d o·do`` is one plain reduction here, as
+the library forms it outside its kernels (``_flash_attention_bwd``).
 
 q, k, v are (N, heads, L, d) float32 with any strides of the first three
 axes and a contiguous last one (the model's are views of its (N, L, C)
 projections); Lq and Lk are any length and d is 1..256: the library's
 multiple-of-128 blocks are its TPU tiling, not part of the function.
+Each launch is a grid of N·heads·(row tiles) blocks, up to 2³¹ - 1.
 
 ``flash_attention`` is an autograd Function whose forward saves ``(q, k,
 v, o, lse)``, as the library's VJP does. On CUDA tensors it launches Lf
@@ -55,6 +55,7 @@ __all__ = ['flash_attention', 'flash_attention_forward',
            'flash_attention_bwd_dq_reference']
 
 _MAX_D = 256                 # the kernels' widest head
+_MAX_BLOCKS = 2 ** 31 - 1    # a grid's x: N·heads·(row tiles of 32, at most)
 _ROWS = [PTR, LONG, LONG, LONG]   # one (N, H, L, d) input and its strides
 _SIGNATURES = {
     'stc_flash_attention_fwd': _ROWS * 3 + [PTR, PTR] + [INT] * 5 +
@@ -181,10 +182,11 @@ def _shape_args(q, k, v):
     _check_args(q, k, v)
     n, h, lq, d = q.shape
     lk = k.shape[2]
-    if not 1 <= d <= _MAX_D or n * h > 65535 or min(n, h, lq, lk) < 1:
+    if not 1 <= d <= _MAX_D or min(n, h, lq, lk) < 1 or \
+            n * h * -(-max(lq, lk) // 32) > _MAX_BLOCKS:
         raise ValueError(f'no kernel for q {tuple(q.shape)}, k '
-                         f'{tuple(k.shape)} (d in 1..{_MAX_D}, N·heads <= '
-                         f'65535)')
+                         f'{tuple(k.shape)} (d in 1..{_MAX_D}, N·heads·'
+                         f'ceil(L / 32) <= {_MAX_BLOCKS})')
     ptrs = (_rows('q', q, q.shape, q.device) + _rows('k', k, k.shape, q.device)
             + _rows('v', v, k.shape, q.device))
     return ptrs, (n, h, lq, lk, d)

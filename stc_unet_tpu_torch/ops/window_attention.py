@@ -245,9 +245,9 @@ def _kernel_args(q, k, v, bias_e, seed, heads, scale, rate):
         raise TypeError(f'q must be float32 or bfloat16, got {q.dtype}')
     w, n, c = q.shape
     d = c // heads
-    if d not in _HEAD_DIMS or not 1 <= n <= _MAX_N or w > 65535:
+    if d not in _HEAD_DIMS or not 1 <= n <= _MAX_N:
         raise ValueError(f'no kernel for W={w}, N={n}, head dim {d} (N <= '
-                         f'{_MAX_N}, d in {_HEAD_DIMS}, W <= 65535)')
+                         f'{_MAX_N}, d in {_HEAD_DIMS})')
     lds = {_rows(name, t, q.shape, q.device, q.dtype)
            for name, t in (('q', q), ('k', k), ('v', v))}
     if len(lds) != 1:

@@ -174,13 +174,19 @@ def test_cpu_wrappers_take_strided_views_and_launch_nothing():
 
 def test_kernel_arguments_are_checked():
     """What the kernels do not take raises before a launch: another dtype,
-    a head wider than 256, a strided last axis, mismatched shapes."""
+    a head wider than 256, N·heads times the tiles of 32 rows past a
+    grid's 2³¹ - 1 blocks, a strided last axis, mismatched shapes."""
     q = torch.zeros(1, 2, 8, 16)
     with pytest.raises(TypeError, match='float32'):
         _shape_args(q.bfloat16(), q.bfloat16(), q.bfloat16())
     wide = torch.zeros(1, 2, 8, 300)
     with pytest.raises(ValueError, match='no kernel'):
         _shape_args(wide, wide, wide)
+    one = torch.zeros(1, 1, 1, 1)
+    for shape in ((2 ** 31, 1, 1, 1), (2 ** 16, 1, 2 ** 20, 1)):
+        big = one.expand(shape)
+        with pytest.raises(ValueError, match='no kernel'):
+            _shape_args(big, big, big)
     strided = torch.zeros(1, 2, 8, 32)[..., ::2]
     with pytest.raises(ValueError, match='contiguous last axis'):
         _shape_args(strided, strided, strided)
@@ -189,6 +195,27 @@ def test_kernel_arguments_are_checked():
     ptrs, shape = _shape_args(q, torch.zeros(1, 2, 5, 16),
                               torch.zeros(1, 2, 5, 16))
     assert shape == (1, 2, 8, 5, 16) and len(ptrs) == 12
+
+
+@pytest.mark.parametrize('kernel', ['flash N·heads', 'window W',
+                                    'coordatt N'])
+def test_launch_arguments_pass_the_old_grid_limit(kernel):
+    """N·heads (Lf, Ldkv, Ldq), W windows (K3f, K3b) and N images (K1,
+    K2, K2b) of 65536, one past the 65535 a grid's y or z may hold, are
+    taken: each now runs on grid.x, or in chunks of windows."""
+    if kernel == 'flash N·heads':
+        q = torch.zeros(32768, 2, 3, 1)
+        assert _shape_args(q, q, q)[1] == (32768, 2, 3, 3, 1)
+    elif kernel == 'window W':
+        from stc_unet_tpu_torch.ops.window_attention import _kernel_args
+        q = torch.zeros(65536, 4, 2)
+        shape, _ = _kernel_args(q, q, q, torch.zeros(4, 4),
+                                torch.zeros(1, dtype=torch.int64), 1, 0.5,
+                                0.0)
+        assert shape == (0, 65536, 4, 1, 2, 2)
+    else:
+        from stc_unet_tpu_torch.ops.coordatt_fused import _check_x
+        _check_x(torch.zeros(65536, 1, 2, 1))
 
 
 # -- the modules ----------------------------------------------------------
@@ -480,3 +507,57 @@ def test_mma_sum_in_fresh_chunks_keeps_dv_at_f32_accuracy(seed):
     limit = 1e-4 * np.abs(want) + 1e-5 * np.abs(want).max()
     assert not np.all(np.abs(chain - want) <= limit)
     assert np.all(np.abs(chunked - want) <= 0.1 * limit)
+
+
+def _split(x):
+    """x (float32) as the kernels split it: hi = tf32(x) to nearest, lo =
+    x - hi, which the tensor core reads truncated to TF32."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi, False)
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_fresh_tile_sums_keep_the_forward_at_f32_accuracy(seed):
+    """Why Lf sums each key tile's p·v in fresh accumulators. The online
+    softmax as the card's Lf runs it over 4096 keys in tiles of 32 (16
+    query rows, d = 256, the model's scale 1/16): per tile the row max m,
+    alpha = exp(m_old - m), p = exp(s - m) and l = l·alpha + Σp in f32,
+    and p·v from the split operands of ``_tf32x3``, each m16n8k8 step
+    rounded toward zero as ``_toward_zero`` models the MMA's sum. One chain
+    of o (rescaled by alpha in f32, then every step added to it) drifts
+    past the card check's limits (rtol 1e-4, atol 1e-5 of the largest
+    value) of the f64 softmax·v of the same scores; a fresh sum per tile,
+    added as o·alpha + part in f32 to nearest, stays well inside them."""
+    rng = np.random.RandomState(seed)
+    rows, keys, d = 16, 4096, 256
+    q, k = rng.randn(rows, d), rng.randn(keys, d)
+    v = rng.randn(keys, d).astype(np.float32)
+    s = (q @ k.T / 16).astype(np.float32)
+    vh, vl = _split(v)
+    chain = fresh = np.zeros((rows, d), np.float32)
+    m = np.full(rows, -np.inf, np.float32)
+    l = np.zeros(rows, np.float32)
+    for k0 in range(0, keys, 32):
+        tile = s[:, k0:k0 + 32]
+        m_new = np.maximum(m, tile.max(1))
+        alpha = np.exp(m - m_new)
+        p = np.exp(tile - m_new[:, None])
+        l = l * alpha + p.sum(1, dtype=np.float32)
+        ph, pl = _split(p)
+        chain = chain * alpha[:, None]
+        part = np.zeros((rows, d), np.float32)
+        for j in range(0, 32, 8):
+            keys8 = slice(k0 + j, k0 + j + 8)
+            for x, y in ((pl, vh), (ph, vl), (ph, vh)):
+                step = (x[:, j:j + 8].astype(np.float64) @
+                        y[keys8].astype(np.float64))
+                chain = _toward_zero(chain + step)
+                part = _toward_zero(part + step)
+        fresh = (fresh.astype(np.float64) * alpha[:, None] + part).astype(
+            np.float32)
+        m = m_new
+    e = np.exp(s.astype(np.float64) - s.max(1, keepdims=True))
+    want = (e / e.sum(1, keepdims=True)) @ v.astype(np.float64)
+    limit = 1e-4 * np.abs(want) + 1e-5 * np.abs(want).max()
+    assert not np.all(np.abs(chain / l[:, None] - want) <= limit)
+    assert np.all(np.abs(fresh / l[:, None] - want) <= 0.1 * limit)

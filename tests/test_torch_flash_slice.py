@@ -151,3 +151,35 @@ def test_flash_train_step_matches_jax(variables):
     for k in stats:
         np.testing.assert_allclose(sd[k].numpy(), ref[k].numpy(), rtol=1e-4,
                                    atol=1e-6, err_msg=k)
+
+
+@pytest.mark.slow
+def test_full_width_flash_logits_match_jax():
+    """``my_config/STC-UNet.py`` at full width with
+    ``backbone.flash_attention=True``, whole mode at 256² (x4 has 1024
+    tokens, x5 256: multiples of the library's 128-row blocks), f32; JAX's
+    library kernel in interpret mode. The limits of the full-width
+    einsum test (``tests/test_torch_stc_unet.py``): rtol 1e-4, atol
+    1e-4."""
+    import os.path as osp
+    from stc_unet_tpu_torch.utils import Config
+    path = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
+                    'my_config', 'STC-UNet.py')
+    cfg = Config.fromfile(path)
+    cfg.model.pretrained = None
+    cfg.model.backbone.flash_attention = False
+    variables = _jax_variables(jax_build(cfg.model), size=64)
+    cfg.model.backbone.flash_attention = True
+    jm = jax_build(cfg.model)
+    jm.variables = variables
+    tm = _port(cfg.model, variables)
+    img = np.random.RandomState(2).rand(1, 256, 256, 3).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jm.encode_decode(img)
+    with torch.no_grad():
+        out = tm.encode_decode(img).numpy()
+    ref = np.asarray(ref)
+    assert out.shape == (1, 256, 256, 2)
+    print(f'flash whole 256: max abs error {np.abs(out - ref).max()}, '
+          f'|max| {np.abs(ref).max()}')
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)

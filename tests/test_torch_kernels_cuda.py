@@ -16,9 +16,11 @@ rtol 2^-7 and atol 2^-7 of the largest value (dbias stays f32). At rate
 0.1 both draw the same Philox mask, so the rate-0 limits hold; K3b's
 reruns are bit-identical. Lf, Ldkv and Ldq (flash attention, f32) sum in
 another order and with an online softmax: rtol 1e-4 and atol 1e-5 of the
-largest value; their reruns are bit-identical, and Ldkv's and Ldq's do
-not change with ``torch.backends.cuda.matmul.allow_tf32``. P (the
-probe's dual strip pool) as K1.
+largest value; their reruns are bit-identical, and do not change with
+``torch.backends.cuda.matmul.allow_tf32``. P (the probe's dual strip
+pool) as K1. Every family but P is also held to its plain version at the
+65535 that a grid's y or z holds and one past it (N images, W windows,
+N·heads), with bit-identical reruns.
 """
 import pytest
 import torch
@@ -174,12 +176,15 @@ def test_window_attention_matches_plain_versions_on_card(
         _close(got, want, dtype, f32_exact=i == 3)
 
 
-# Ldkv and Ldq tile 32 keys and 32 query rows and pad d with zeros to 32,
-# 64, 128 or 256 (the MMA depth is 8): lengths one below and above a tile,
-# or two, and widths that are no multiple of 8 or just past a padding
+# Ldkv and Ldq tile 32 keys and 32 query rows, Lf 64 query rows and 32
+# keys, and all pad d with zeros to 32, 64, 128 or 256 (the MMA depth is
+# 8): lengths one below and above a tile, or two, 1 and 4097, and widths
+# that are no multiple of 8 or just past a padding
 FLASH_EDGES = [(1, 2, 63, 31, 64), (2, 1, 65, 33, 32), (1, 2, 129, 63, 128),
                (1, 1, 63, 65, 256), (2, 2, 65, 31, 1), (1, 2, 129, 33, 7),
-               (1, 2, 63, 65, 255), (1, 1, 33, 129, 33)]
+               (1, 2, 63, 65, 255), (1, 1, 33, 129, 33), (1, 2, 1, 1, 33),
+               (2, 2, 1, 4097, 1), (1, 2, 4097, 65, 255),
+               (1, 1, 4097, 4097, 256)]
 
 
 @pytest.mark.cuda
@@ -190,8 +195,8 @@ FLASH_EDGES = [(1, 2, 63, 31, 64), (2, 1, 65, 33, 32), (1, 2, 129, 63, 128),
 def test_flash_attention_matches_plain_versions_on_card(cuda_device, n, h,
                                                         lq, lk, d):
     """Lf, Ldkv and Ldq against their plain versions; reruns bit-identical,
-    and Ldkv's and Ldq's also with TF32 matmuls allowed: their 3xTF32
-    split never reads the flag."""
+    also with TF32 matmuls allowed: their 3xTF32 split never reads the
+    flag."""
     g = torch.Generator(device=cuda_device).manual_seed(4)
     q = torch.randn((n, h, lq, d), generator=g, device=cuda_device)
     k, v = (torch.randn((n, h, lk, d), generator=g, device=cuda_device)
@@ -210,24 +215,32 @@ def test_flash_attention_matches_plain_versions_on_card(cuda_device, n, h,
     dq2 = flash_attention_bwd_dq(q, k, v, lse, do, di, scale)
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
+        o3, lse3 = flash_attention_forward(q, k, v, scale)
         dk3, dv3 = flash_attention_bwd_dkv(q, k, v, lse, do, di, scale)
         dq3 = flash_attention_bwd_dq(q, k, v, lse, do, di, scale)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     assert (flash_attention_forward.launches,
             flash_attention_bwd_dkv.launches,
-            flash_attention_bwd_dq.launches) == (before[0] + 2,
+            flash_attention_bwd_dq.launches) == (before[0] + 3,
                                                  before[1] + 3,
                                                  before[2] + 3)
     for a, b in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2), (dq, dq2),
-                 (dk, dk3), (dv, dv3), (dq, dq3)):
+                 (o, o3), (lse, lse3), (dk, dk3), (dv, dv3), (dq, dq3)):
         assert torch.equal(a, b)
     ro, rlse = flash_attention_reference(q, k, v, scale)
     _close(o, ro, torch.float32)
     _close(lse, rlse, torch.float32)
-    for got, want in zip((dq, dk, dv), flash_attention_backward_reference(
-            q, k, v, ro, rlse, do, scale)):
-        _close(got, want, torch.float32)
+    rdq, rdk, rdv = flash_attention_backward_reference(q, k, v, ro, rlse, do,
+                                                       scale)
+    _close(dv, rdv, torch.float32)
+    if lk == 1:
+        # one key: p = 1 and ds = 0, so dq and dk vanish and both sides give
+        # rounding noise; held to zero at 1e-5 of the largest dv
+        assert max(dq.abs().max(), dk.abs().max()) <= 1e-5 * rdv.abs().max()
+    else:
+        _close(dq, rdq, torch.float32)
+        _close(dk, rdk, torch.float32)
 
 
 @pytest.mark.cuda
@@ -254,6 +267,71 @@ def test_flash_attention_autograd_on_card(cuda_device):
     for leaf, want in zip(leaves, flash_attention_backward_reference(
             *leaves, ro, rlse, do, 0.0625)):
         _close(leaf.grad, want, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('count', [65535, 65536])
+@pytest.mark.parametrize('family', ['coordatt', 'window', 'flash'])
+def test_kernels_pass_the_old_grid_limit_on_card(cuda_device, family,
+                                                 count):
+    """At 65535 (the most a grid's y or z holds) and one past it: N
+    images for K1, K2 and K2b, W windows for K3f and K3b (rate 0.1), N·heads
+    for Lf, Ldkv and Ldq; each against its plain version at the limits
+    above, each rerun bit-identical. Tiny rows keep each case to a few
+    tens of MB."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+
+    if family == 'coordatt':
+        x, do = randn(count, 2, 3, 33), randn(count, 2, 3, 33)
+        a_h, a_w = randn(count, 2, 33), randn(count, 3, 33)
+        for fn, ref, args, tol in (
+                (tfused.strip_pools, tfused.strip_pools_reference, (x,),
+                 dict(rtol=1e-5, atol=1e-4)),
+                (tfused.gate_add, tfused.gate_add_reference, (x, a_h, a_w),
+                 dict(rtol=1e-6, atol=1e-6)),
+                (tfused.gate_dots, tfused.gate_dots_reference,
+                 (do, a_h, a_w), dict(rtol=1e-5, atol=1e-4))):
+            got, again = fn(*args), fn(*args)
+            torch.testing.assert_close(got, ref(*args), **tol)
+            if isinstance(got, torch.Tensor):
+                got, again = (got,), (again,)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+    elif family == 'window':
+        qkv = randn(count, 4, 6)
+        q, k, v = qkv[..., :2], qkv[..., 2:4], qkv[..., 4:]
+        bias_e, do = 0.1 * randn(4, 4), randn(count, 4, 2)
+        seed = torch.randint(2 ** 62, (1,), generator=g, device=cuda_device)
+        args = (q, k, v, bias_e, seed)
+        out = twa.window_attention(*args, 1, 1.0, 0.1)
+        grads = twa.window_attention_backward(*args, do, 1, 1.0, 0.1)
+        assert torch.equal(out, twa.window_attention(*args, 1, 1.0, 0.1))
+        assert all(torch.equal(a, b) for a, b in zip(
+            grads, twa.window_attention_backward(*args, do, 1, 1.0, 0.1)))
+        _close(out, twa.window_attention_reference(*args, 1, 1.0, 0.1),
+               torch.float32)
+        for got, want in zip(grads, twa.window_attention_backward_reference(
+                *args, do, 1, 1.0, 0.1)):
+            _close(got, want, torch.float32)
+    else:
+        n, h = (count, 1) if count % 2 else (count // 2, 2)
+        q, do = randn(n, h, 3, 8), randn(n, h, 3, 8)
+        k, v = randn(n, h, 5, 8), randn(n, h, 5, 8)
+        o, lse = flash_attention_forward(q, k, v, 0.5)
+        di = (o * do).sum(-1)
+        outs = (o, lse) + flash_attention_bwd_dkv(q, k, v, lse, do, di, 0.5) \
+            + (flash_attention_bwd_dq(q, k, v, lse, do, di, 0.5),)
+        again = flash_attention_forward(q, k, v, 0.5) + \
+            flash_attention_bwd_dkv(q, k, v, lse, do, di, 0.5) + \
+            (flash_attention_bwd_dq(q, k, v, lse, do, di, 0.5),)
+        assert all(torch.equal(a, b) for a, b in zip(outs, again))
+        ro, rlse = flash_attention_reference(q, k, v, 0.5)
+        dq, dk, dv = flash_attention_backward_reference(q, k, v, ro, rlse,
+                                                        do, 0.5)
+        for got, want in zip(outs, (ro, rlse, dk, dv, dq)):
+            _close(got, want, torch.float32)
 
 
 @pytest.mark.cuda

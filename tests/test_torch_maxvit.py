@@ -391,3 +391,29 @@ def test_full_width_config_builds_and_with_cp_raises():
     assert apply_maxvit_block(block.eval(), x, 'attn').shape == x.shape
     with pytest.raises(NotImplementedError, match='BN running stats'):
         apply_maxvit_block(block.train(), x, True)
+
+
+@pytest.mark.slow
+def test_full_width_whole_parity_512():
+    """``my_config/MaxViT-UNet.py`` at full width (its depths, channels 64
+    to 512, 32 heads, 8x8 windows and grids) at 512², whole mode, f32,
+    with variables drawn as ``_random_variables`` draws them, to the
+    limits of the full-width STC-UNet test
+    (``tests/test_torch_stc_unet.py``): rtol 1e-4, atol 1e-4."""
+    from stc_unet_tpu_torch.utils import Config
+    cfg = Config.fromfile(osp.join(REPO, 'my_config', 'MaxViT-UNet.py'))
+    cfg.model.pretrained = None
+    jm = jax_build(cfg.model, test_cfg=cfg.get('test_cfg'))
+    jm.variables = _random_variables(
+        jm.net, jnp.zeros((1, 512, 512, 3)), train=False,
+        method=EncoderDecoderNet.forward_heads)
+    tm = build_segmentor(cfg.model, test_cfg=cfg.get('test_cfg'))
+    tm.load_state_dict(jax_to_torch_state(jm.variables), strict=True)
+    tm = tm.to(memory_format=torch.channels_last)
+    img = np.random.RandomState(5).rand(1, 512, 512, 3).astype(np.float32)
+    out = tm.encode_decode(img).numpy()
+    ref = np.asarray(jm.encode_decode(img))
+    assert out.shape == (1, 512, 512, 2)
+    print(f'MaxViT-UNet whole 512: max abs error {np.abs(out - ref).max()}, '
+          f'|max| {np.abs(ref).max()}')
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)

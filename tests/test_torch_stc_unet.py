@@ -192,17 +192,41 @@ def test_init_segmentor_builds_the_flagship_config():
             init_segmentor(path)
 
 
-@pytest.mark.slow
-def test_full_width_whole_parity_512():
-    """Full width (``my_config/STC-UNet.py``) at 512², whole mode, f32."""
+def _full_width_models():
+    """``my_config/STC-UNet.py`` at full width in JAX, from its jitted
+    init, and in the port with the same weights."""
     cfg = Config.fromfile(osp.join(REPO, 'my_config', 'STC-UNet.py'))
     cfg.model.pretrained = None
     jm = jax_build(cfg.model, test_cfg=cfg.get('test_cfg'))
     jm.variables = _jax_variables(jm, size=64)
     tm = build_segmentor(cfg.model, test_cfg=cfg.get('test_cfg'))
     tm.load_state_dict(jax_to_torch_state(jm.variables), strict=True)
-    tm = tm.to(memory_format=torch.channels_last)
+    return jm, tm.to(memory_format=torch.channels_last)
+
+
+@pytest.mark.slow
+def test_full_width_whole_parity_512():
+    """Full width (``my_config/STC-UNet.py``) at 512², whole mode, f32."""
+    jm, tm = _full_width_models()
     img = _img(n=1, size=512, seed=5)
-    np.testing.assert_allclose(tm.encode_decode(img).numpy(),
-                               np.asarray(jm.encode_decode(img)),
-                               rtol=1e-4, atol=1e-4)
+    out = tm.encode_decode(img).numpy()
+    ref = np.asarray(jm.encode_decode(img))
+    print(f'whole 512: max abs error {np.abs(out - ref).max()}, '
+          f'|max| {np.abs(ref).max()}')
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.slow
+def test_full_width_slide_parity_512():
+    """Full width at 512², slide mode as the benchmark runs it (crop 256,
+    stride 170: 9 tiles), f32, to the whole-mode limits."""
+    jm, tm = _full_width_models()
+    jm.test_cfg = tm.test_cfg = dict(mode='slide', crop_size=(256, 256),
+                                     stride=(170, 170))
+    img = _img(n=1, size=512, seed=6)
+    out = tm.slide_inference(img, None, False).numpy()
+    ref = np.asarray(jm.slide_inference(img, None, False))
+    assert out.shape == (1, 512, 512, 2)
+    print(f'slide 512: max abs error {np.abs(out - ref).max()}, '
+          f'|max| {np.abs(ref).max()}')
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
