@@ -19,8 +19,10 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
    shapes of the slide tiles and of whole 512² images, and at odd shapes,
    with bit-identical reruns for K1 and K2b; K3f ``window_attention`` and
    K3b ``window_attention_backward`` at MaxViT's B=8 stage shapes, at rate
-   0.1 with the same seed (the same dropout mask), and at odd shapes, with
-   bit-identical reruns of K3b; all in f32 and bf16; then every kernel of
+   0.1 with the same seed (the same dropout mask), and at odd shapes and
+   row layouts at rates 0 and 0.1, with bit-identical reruns of K3b, after
+   checking that each of their 16 builds holds tensor-core MMAs of its
+   type (bf16 or TF32); all in f32 and bf16; then every kernel of
    the three paths at the 65535 that a grid's y or z holds and one past it
    (N images, W windows, N·heads), against its plain version with
    bit-identical reruns (``launch_limits``);
@@ -38,7 +40,12 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
    kernel at the Up-stage shapes of the B=14 slide batch (K2b: of the B=8
    train batch, bf16) beside its plain version, a one-call PyTorch
    yardstick and its bound (bytes over 3.35 TB/s), and checks it against
-   its plain version there too, K1 and K2 also at the B=8 train shapes;
+   its plain version there too, K1 and K2 also at the B=8 train shapes in
+   bf16, where they are timed too. Every kernel and yardstick is timed
+   twice: ``ms`` with an event pair around the call (the host's time to
+   queue it included, as in every earlier run) and ``device_ms`` with the
+   host's work hidden behind a sleep kernel
+   (``stc_unet_tpu_torch/tools/timing.py``);
 6. takes two train steps at full width on the card and on the port on the
    CPU from the same weights (64², B=2, f32, TF32 off, no dropout) and
    compares the losses, the first step's gradients (each tensor against
@@ -53,7 +60,7 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
    K3f launches per forward, and holds its logits to the CPU as in 4
    (``maxvit_slice``); times whole B=8 and the bs-1 p50 at torch's
    defaults, with a profile (``maxvit_timing``); times K3f and K3b at the
-   B=8 stage shapes beside their plain versions, the
+   B=8 stage shapes at rates 0 and 0.1 beside their plain versions, the
    ``scaled_dot_product_attention`` yardstick and their bounds
    (``window_attention_timing``); takes two train steps on the card and
    on the CPU as in 6, at 256² with one block per stage
@@ -99,6 +106,7 @@ import importlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -181,8 +189,20 @@ TF32_LIMITS = dict(logit_err_over_max=1e-2, margin_err_over_spread=0.1,
 WA_HEADS = 32
 WA_STAGES = [(2048, 64, 64, 8), (512, 64, 128, 8), (128, 64, 256, 8),
              (32, 64, 512, 4)]
-# odd shapes: W not a multiple of K3b's chunk, 7x7 windows, 2 heads of 16
-WA_ODD = [(100, 16, 16, 2), (67, 49, 16, 4), (5, 64, 512, 32)]
+# odd shapes (W, N, C, heads, layout) at the edges of K3's tiling (a warp
+# per 16 rows, keys in 8 tiles of 8, d padded to 8 or 16): N of 1, 16, 33,
+# 49 (7x7 windows), 63 and 64; every d (2, 4, 8, 16); W of 1 and odd ones
+# not a multiple of K3b's chunk (100, 131). Layouts (``wa_inputs``): 'qkv'
+# the thirds of one qkv row (row stride 3C; 3 heads of d = 2 put the k and
+# v thirds 12 bytes apart in bf16), 'own' three contiguous tensors (stride
+# C), 'odd' thirds of rows of 3C + 1 (2-byte aligned rows in bf16, copied
+# element by element)
+WA_ODD = [(100, 16, 16, 2, 'qkv'), (67, 49, 16, 4, 'qkv'),
+          (5, 64, 512, 32, 'qkv'), (1, 1, 8, 4, 'qkv'),
+          (131, 63, 32, 4, 'qkv'), (3, 64, 6, 3, 'qkv'),
+          (7, 49, 64, 4, 'own'), (2, 64, 128, 8, 'own'),
+          (9, 33, 24, 6, 'odd'), (4, 64, 64, 4, 'odd')]
+WA_RATES = (0.0, 0.1)        # rate 0.1: the train step's attention dropout
 # bench.py's train step
 OPTIMIZER = dict(type='Adam', lr=1e-5, betas=(0.9, 0.999))
 LR_CONFIG = dict(policy='poly', power=0.9, min_lr=1e-6, by_epoch=False)
@@ -223,19 +243,31 @@ def metas(n, size):
 
 
 def event_ms(torch, fn, warmup=2, iters=10):
-    """Median device time of one call, from a CUDA event pair per call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median time of one call, from a CUDA event pair per call. The card
+    is idle when the start event is queued, so this counts the host's time
+    to queue the call too (``device_ms`` does not;
+    ``stc_unet_tpu_torch/tools/timing.py``)."""
+    from stc_unet_tpu_torch.tools import timing
+    return timing.event_ms(fn, warmup, iters)
+
+
+def device_ms(fn, warmup=2, iters=10):
+    """Median device time of one call's kernels, the host's work hidden
+    behind a sleep kernel queued before the start event."""
+    from stc_unet_tpu_torch.tools import timing
+    return timing.device_ms(fn, warmup, iters)
+
+
+def timed(torch, kernel, library, plain=None, plain_iters=10):
+    """A timing row: ``ms`` (event pair, host time included, as since PR
+    1) and ``device_ms`` of the kernel's call, the same of the library
+    call, and ``plain_ms`` of the plain version if given."""
+    r = dict(ms=event_ms(torch, kernel), device_ms=device_ms(kernel),
+             library_ms=event_ms(torch, library),
+             library_device_ms=device_ms(library))
+    if plain is not None:
+        r['plain_ms'] = event_ms(torch, plain, iters=plain_iters)
+    return r
 
 
 def check_kernels(torch, cf, x, a_h, a_w):
@@ -330,16 +362,23 @@ def phase_kernels(torch, cf):
     return err
 
 
-def wa_inputs(torch, w, n, c, heads, dtype, seed):
-    """q, k, v (W, N, C) as the model gives them (the thirds of one qkv
-    tensor), bias_e (N, heads·N) f32, a seed and do (W, N, C)."""
+def wa_inputs(torch, w, n, c, heads, dtype, seed, layout='qkv'):
+    """q, k, v (W, N, C), bias_e (N, heads·N) f32, a seed and do (W, N, C).
+    ``layout``: 'qkv' the thirds of one qkv tensor, as the model gives
+    them (row stride 3C); 'own' three contiguous tensors (stride C); 'odd'
+    the thirds of rows of 3C + 1 elements."""
     g = torch.Generator(device='cuda').manual_seed(seed)
-    qkv = torch.randn((w, n, 3 * c), generator=g, device='cuda').to(dtype)
+    if layout == 'own':
+        q, k, v = (torch.randn((w, n, c), generator=g, device='cuda')
+                   .to(dtype) for _ in range(3))
+    else:
+        row = 3 * c + (layout == 'odd')
+        qkv = torch.randn((w, n, row), generator=g, device='cuda').to(dtype)
+        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:3 * c]
     bias_e = 0.1 * torch.randn((n, heads * n), generator=g, device='cuda')
     sd = torch.randint(2 ** 62, (1,), generator=g, device='cuda')
     do = torch.randn((w, n, c), generator=g, device='cuda').to(dtype)
-    return (qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], bias_e, sd,
-            do)
+    return q, k, v, bias_e, sd, do
 
 
 def wa_tolerance(torch, name, ref, dtype):
@@ -395,21 +434,61 @@ def check_window_attention(torch, wa, inputs, heads, rate):
     return e_fwd, e_bwd
 
 
-def phase_window_attention_kernels(torch, wa):
+def wa_mmas(library):
+    """The tensor-core MMA instructions of each K3 kernel of the built
+    library, from ``cuobjdump -sass``: {'wa_fwd<bf16, 2>': {'bf16': n,
+    'tf32': m}, ...}."""
+    from stc_unet_tpu_torch.tools.probe_window_attention import kernel_name
+    counts, fn = {}, None
+    for line in sass_of(library).splitlines():
+        if 'Function :' in line:
+            fn = kernel_name(line)
+            if fn:
+                counts[fn] = dict(bf16=0, tf32=0)
+        elif fn and 'MMA' in line:
+            for kind in ('bf16', 'tf32'):
+                counts[fn][kind] += kind.upper() in line
+    return counts
+
+
+def wa_usage(wa, log):
+    """Each K3 build's registers and spill bytes (``nvcc -Xptxas=-v``'s
+    log) and its dynamic shared memory a block, as the library gives it."""
+    from stc_unet_tpu_torch.tools.probe_window_attention import ptxas_usage
+    usage = ptxas_usage(log)
+    for name, u in usage.items():
+        kernel, dtype, d = re.match(r'wa_(\w+)<(\w+), (\d+)>', name).groups()
+        u['smem_bytes'] = wa._kernels().stc_window_attention_smem(
+            kernel == 'bwd', int(dtype == 'bf16'), int(d))
+    return usage
+
+
+def phase_window_attention_kernels(torch, wa, lib):
     """K3f and K3b against their plain versions on the card: at the B=8
     stage shapes of MaxViT-UNet (32 heads, 8x8 windows) in f32 and bf16 at
     rate 0; at a small W at rate 0.1 with the same seed, at the rate-0
     limits (a weight dropped differently would move its output by about
-    |v|/64, far beyond them: agreement means the same mask); at odd
-    shapes."""
+    |v|/64, far beyond them: agreement means the same mask); at odd shapes
+    and layouts (``WA_ODD``) at rates 0 and 0.1. First, each of the 16
+    builds (K3f and K3b, 2 types, 4 head widths) must hold tensor-core
+    MMAs of its type: bf16 in the bf16 builds, TF32 in the f32 ones."""
+    mmas = wa_mmas(str(lib['path']))
+    want = {f'{k}<{t}, {d}>' for k in ('wa_fwd', 'wa_bwd')
+            for t in ('f32', 'bf16') for d in (2, 4, 8, 16)}
+    if set(mmas) != want or not all(
+            v['bf16' if 'bf16' in k else 'tf32'] for k, v in mmas.items()):
+        raise AssertionError(f'K3f and K3b: not 16 builds, each with MMAs '
+                             f'of its type: {mmas}')
     err = dict.fromkeys(WA_KERNELS, 0.0)
     checked = []
-    cases = [(w, n, c, WA_HEADS, 0.0) for w, n, c, _ in WA_STAGES]
-    cases += [(16, 64, 64, WA_HEADS, 0.1), (5, 64, 512, WA_HEADS, 0.1)]
-    cases += [(w, n, c, h, r) for w, n, c, h in WA_ODD for r in (0.0, 0.1)]
+    cases = [(w, n, c, WA_HEADS, 0.0, 'qkv') for w, n, c, _ in WA_STAGES]
+    cases += [(16, 64, 64, WA_HEADS, 0.1, 'qkv'),
+              (5, 64, 512, WA_HEADS, 0.1, 'qkv')]
+    cases += [(w, n, c, h, r, layout) for w, n, c, h, layout in WA_ODD
+              for r in WA_RATES]
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (w, n, c, h, rate) in enumerate(cases):
-            inputs = wa_inputs(torch, w, n, c, h, dtype, 10 + i)
+        for i, (w, n, c, h, rate, layout) in enumerate(cases):
+            inputs = wa_inputs(torch, w, n, c, h, dtype, 10 + i, layout)
             e_fwd, e_bwd = check_window_attention(torch, wa, inputs, h, rate)
             if rate > 0:
                 q, k, v, bias_e, sd, _ = inputs
@@ -423,12 +502,14 @@ def phase_window_attention_kernels(torch, wa):
                 err['window_attention_backward'], e_bwd)
             checked.append(dict(
                 shape=[w, n, c], heads=h, dtype=str(dtype)[6:], rate=rate,
+                layout=layout, row_stride=inputs[0].stride(1),
                 window_attention_err=e_fwd,
                 window_attention_backward_err=e_bwd,
                 **(dict(dropout_moves_out_by=moved) if rate > 0 else {})))
             del inputs
         torch.cuda.empty_cache()
     emit('window_attention_kernels', ok=True, checked=checked,
+         sass_mmas=mmas, ptxas=wa_usage(wa, lib['log']),
          tolerance=dict(
              float32='rtol 1e-4, atol 1e-5 of the largest value',
              bfloat16='dq, dk, dv, out: rtol 2^-7, atol 2^-7 of the '
@@ -449,66 +530,81 @@ def sdpa_heads(torch, t, heads):
 
 
 def phase_window_attention_timing(torch, wa, err):
-    """K3f and K3b at the B=8 stage shapes of MaxViT-UNet in bf16, rate 0,
-    each beside its plain version and a PyTorch yardstick
-    (``F.scaled_dot_product_attention`` with the bias as its mask, and its
-    autograd backward), with its bound; each held against its plain
-    version on those inputs, its error folded into err."""
+    """K3f and K3b at the B=8 stage shapes of MaxViT-UNet in bf16, at rates
+    0 and 0.1 (the train step's), each beside its plain version and a
+    PyTorch yardstick (``F.scaled_dot_product_attention`` with the bias as
+    its mask and the same dropout rate, and its autograd backward), with
+    its bound; each held against its plain version on those inputs, its
+    error folded into err. Returns the rate-0 rows (the kernels line's)."""
     import torch.nn.functional as F
-    per = {name: [] for name in WA_KERNELS}
+    rows = {rate: {name: [] for name in WA_KERNELS} for rate in WA_RATES}
     h = WA_HEADS
     scale = h ** -0.5
     for i, (w, n, c, calls) in enumerate(WA_STAGES):
         inputs = wa_inputs(torch, w, n, c, h, torch.bfloat16, 200 + i)
         q, k, v, bias_e, sd, do = inputs
         do = do.contiguous()
-        e_fwd, e_bwd = check_window_attention(torch, wa, inputs, h, 0.0)
-        err['window_attention'] = max(err['window_attention'], e_fwd)
-        err['window_attention_backward'] = max(
-            err['window_attention_backward'], e_bwd)
         qh, kh, vh = (sdpa_heads(torch, t, h) for t in (q, k, v))
         mask = bias_e.reshape(n, h, n).transpose(0, 1)[None].to(
             torch.bfloat16).contiguous().requires_grad_(True)
         doh = do.reshape(w, n, h, c // h).transpose(1, 2).contiguous()
-        sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
-                                                  scale=scale)
         elems = w * n * c * 2                 # bytes of one (W, N, C) bf16
         exps = w * h * n * n
         dots = 2 * w * n * n * c              # flops of one N x N x d product
-        fwd = dict(
-            ms=event_ms(torch, lambda: wa.window_attention(
-                q, k, v, bias_e, sd, h, scale)),
-            plain_ms=event_ms(torch, lambda: wa.window_attention_reference(
-                q, k, v, bias_e, sd, h, scale), iters=3),
-            library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask, scale=scale)),
-            bytes=4 * elems + bias_e.numel() * 4, exps=exps,
-            flops=2 * dots, max_abs_err=e_fwd)
-        bwd = dict(
-            ms=event_ms(torch, lambda: wa.window_attention_backward(
-                q, k, v, bias_e, sd, do, h, scale)),
-            plain_ms=event_ms(
-                torch, lambda: wa.window_attention_backward_reference(
-                    q, k, v, bias_e, sd, do, h, scale), iters=3),
-            library_ms=event_ms(torch, lambda: torch.autograd.grad(
-                sdpa_out, (qh, kh, vh, mask), doh, retain_graph=True)),
-            bytes=7 * elems + 2 * bias_e.numel() * 4, exps=exps,
-            flops=5 * dots, max_abs_err=e_bwd)
-        for name, r in zip(WA_KERNELS, (fwd, bwd)):
-            r.update(shape=[w, n, c], heads=h, calls=calls)
-            per[name].append(bound(r, BF16_FLOPS))
-        del inputs, q, k, v, do, qh, kh, vh, mask, doh, sdpa_out
+        for rate in WA_RATES:
+            e_fwd, e_bwd = check_window_attention(torch, wa, inputs, h, rate)
+            err['window_attention'] = max(err['window_attention'], e_fwd)
+            err['window_attention_backward'] = max(
+                err['window_attention_backward'], e_bwd)
+            sdpa_out = F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, dropout_p=rate, scale=scale)
+            fwd = timed(
+                torch,
+                lambda: wa.window_attention(q, k, v, bias_e, sd, h, scale,
+                                            rate),
+                lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, dropout_p=rate,
+                    scale=scale),
+                lambda: wa.window_attention_reference(
+                    q, k, v, bias_e, sd, h, scale, rate), plain_iters=3)
+            fwd.update(bytes=4 * elems + bias_e.numel() * 4, exps=exps,
+                       flops=2 * dots, max_abs_err=e_fwd)
+            bwd = timed(
+                torch,
+                lambda: wa.window_attention_backward(q, k, v, bias_e, sd, do,
+                                                     h, scale, rate),
+                lambda: torch.autograd.grad(sdpa_out, (qh, kh, vh, mask),
+                                            doh, retain_graph=True),
+                lambda: wa.window_attention_backward_reference(
+                    q, k, v, bias_e, sd, do, h, scale, rate), plain_iters=3)
+            bwd.update(bytes=7 * elems + 2 * bias_e.numel() * 4, exps=exps,
+                       flops=5 * dots, max_abs_err=e_bwd)
+            for name, r in zip(WA_KERNELS, (fwd, bwd)):
+                r.update(shape=[w, n, c], heads=h, calls=calls, rate=rate)
+                rows[rate][name].append(bound(r, BF16_FLOPS))
+            del sdpa_out
+        del inputs, q, k, v, do, qh, kh, vh, mask, doh
         torch.cuda.empty_cache()
+    keys = ('ms', 'device_ms', 'plain_ms', 'library_ms', 'library_device_ms',
+            'bound_ms')
     emit('window_attention_timing', dtype='bfloat16', batch=TRAIN_BATCH,
-         rate=0.0, library=dict(
+         library=dict(
              window_attention='F.scaled_dot_product_attention(q, k, v, '
-                              'attn_mask=bias (1, H, N, N) bf16, scale)',
+                              'attn_mask=bias (1, H, N, N) bf16, '
+                              'dropout_p=rate, scale)',
              window_attention_backward='torch.autograd.grad of it to q, '
                                        'k, v and the mask'),
+         timer='ms: CUDA event pair, host time included (as in earlier runs); '
+               'device_ms: the host hidden behind a sleep kernel',
          bound='largest of bytes / 3.35 TB/s, exponentials / 4.2e12 per '
-               's, dot-product flops / 989 TFLOP/s (bf16)',
-         stages=per)
-    return per
+               's, dot-product flops / 989 TFLOP/s (bf16); no Philox work '
+               'counted at rate 0.1',
+         rates={str(rate): dict(stages=per, **{
+             f'{name}_total_{key}': sum(r['calls'] * r[key]
+                                        for r in per[name])
+             for name in WA_KERNELS for key in keys})
+             for rate, per in rows.items()})
+    return rows[0.0]
 
 
 def fa_inputs(torch, n, h, lq, lk, d, seed):
@@ -596,16 +692,20 @@ def check_flash(torch, fa, q, k, v, do, scale):
     return e_fwd, e_dkv, e_dq
 
 
-def tf32_mmas(library):
-    """The TF32 tensor-core instructions (HMMA or HGMMA ... TF32) of each
-    kernel of a built library, from ``cuobjdump -sass``: {kernel's demangled
-    template name: count}."""
+def sass_of(library):
+    """``cuobjdump -sass`` of a built library."""
     from torch.utils.cpp_extension import CUDA_HOME
-    sass = subprocess.run(
+    return subprocess.run(
         [os.path.join(CUDA_HOME, 'bin', 'cuobjdump'), '-sass', library],
         capture_output=True, text=True, check=True, timeout=300).stdout
+
+
+def tf32_mmas(library):
+    """The TF32 tensor-core instructions (HMMA or HGMMA ... TF32) of each
+    flash kernel of a built library, from ``cuobjdump -sass``: {kernel's
+    demangled template name: count}."""
     counts, fn = {}, None
-    for line in sass.splitlines():
+    for line in sass_of(library).splitlines():
         if 'Function :' in line:
             mangled = line.split('Function :')[1].strip()
             # _ZN<anon namespace>..<len><name>ILi<DP>E(Lb<VEC>E)...:
@@ -675,14 +775,11 @@ def flash_rows(torch, fa, n, length, calls, seed, backward, err):
     row = n * h * length * 4                 # of lse or di
     product = 2 * n * h * length * length * d
     exps = n * h * length * length
-    fwd = dict(
-        ms=event_ms(torch, lambda: fa.flash_attention_forward(q, k, v,
-                                                              scale)),
-        plain_ms=event_ms(torch, lambda: fa.flash_attention_reference(
-            q, k, v, scale), iters=3),
-        library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=scale)),
-        bytes=4 * tensor + row, flops=2 * product, exps=exps)
+    fwd = timed(torch, lambda: fa.flash_attention_forward(q, k, v, scale),
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                lambda: fa.flash_attention_reference(q, k, v, scale),
+                plain_iters=3)
+    fwd.update(bytes=4 * tensor + row, flops=2 * product, exps=exps)
     sdpa = SDPBackend(torch._fused_sdp_choice(q, k, v, scale=scale)).name
     rows = {'flash_attention_forward': fwd}
     if backward:
@@ -690,24 +787,31 @@ def flash_rows(torch, fa, n, length, calls, seed, backward, err):
         di = (o * do).sum(-1)
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         out = F.scaled_dot_product_attention(*leaves, scale=scale)
-        sdpa_bwd_ms = event_ms(torch, lambda: torch.autograd.grad(
-            out, leaves, do, retain_graph=True))
+        sdpa_bwd = dict(
+            library_ms=event_ms(torch, lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True)),
+            library_device_ms=device_ms(lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True)))
         rows['flash_attention_bwd_dkv'] = dict(
             ms=event_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, lse, do, di, scale)),
+            device_ms=device_ms(lambda: fa.flash_attention_bwd_dkv(
                 q, k, v, lse, do, di, scale)),
             plain_ms=event_ms(
                 torch, lambda: fa.flash_attention_bwd_dkv_reference(
                     q, k, v, lse, do, di, scale), iters=3),
-            library_ms=sdpa_bwd_ms,
-            bytes=6 * tensor + 2 * row, flops=4 * product, exps=exps)
+            bytes=6 * tensor + 2 * row, flops=4 * product, exps=exps,
+            **sdpa_bwd)
         rows['flash_attention_bwd_dq'] = dict(
             ms=event_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                q, k, v, lse, do, di, scale)),
+            device_ms=device_ms(lambda: fa.flash_attention_bwd_dq(
                 q, k, v, lse, do, di, scale)),
             plain_ms=event_ms(
                 torch, lambda: fa.flash_attention_bwd_dq_reference(
                     q, k, v, lse, do, di, scale), iters=3),
-            library_ms=sdpa_bwd_ms,
-            bytes=5 * tensor + 2 * row, flops=3 * product, exps=exps)
+            bytes=5 * tensor + 2 * row, flops=3 * product, exps=exps,
+            **sdpa_bwd)
         del o, lse, di, leaves, out
     for name, r in rows.items():
         r.update(shape=[n, h, length, d], calls=calls)
@@ -743,7 +847,8 @@ def phase_flash_attention_timing(torch, fa, err):
     def total(rows, key):
         return sum(r['calls'] * r[key] for r in rows)
 
-    keys = ('ms', 'plain_ms', 'bound_ms', 'bound_tc_ms', 'library_ms')
+    keys = ('ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_tc_ms',
+            'library_ms', 'library_device_ms')
     emit('flash_attention_timing', dtype='float32', heads=FA_HEADS, d=FA_D,
          sdpa_backend=sdpa,
          library=dict(
@@ -807,7 +912,7 @@ def phase_launch_limits(torch, cf, wa, fa):
     emit('launch_limits', ok=True, checked=checked,
          axes='K1/K2b: N images (a 1-D grid of N * bands * ceil(C / 32) '
               'blocks), K2 (N * H); K3f/K3b: W windows (grid.y = ceil(W / '
-              'windows a block) <= 16384, K3b in at most 64 chunks); '
+              'windows a block) <= 4096, K3b in at most 64 chunks); '
               'Lf/Ldkv/Ldq: N·heads (a 1-D grid of N·heads·row tiles)',
          tolerance='as kernels, window_attention_kernels and '
                    'flash_attention_kernels; every kernel\'s rerun '
@@ -890,9 +995,12 @@ def phase_coordatt_probe(torch, kern):
             v for k, v in launches.items()
             if k not in ('dual_pools', 'strip_pools')):
         raise AssertionError(f'probe launches {launches}')
-    rows = [bound(dict(ms=st['dual_pools_ms'], plain_ms=st['torch_sums_ms'],
-                       library_ms=st['torch_sums_ms'], bytes=st['bytes'],
-                       flops=st['flops'],
+    rows = [bound(dict(ms=st['dual_pools_ms'],
+                       device_ms=st['dual_pools_device_ms'],
+                       plain_ms=st['torch_sums_ms'],
+                       library_ms=st['torch_sums_ms'],
+                       library_device_ms=st['torch_sums_device_ms'],
+                       bytes=st['bytes'], flops=st['flops'],
                        shape=[st['batch'], st['hw'], st['hw'], st['c']]))
             for st in rec['stages']]
     emit('coordatt_probe', ok=True, launches=launches, max_abs_err=err,
@@ -1075,40 +1183,46 @@ def bound(r, flop_rate=F32_FLOPS, key='bound'):
     return r
 
 
+def coordatt_rows(torch, cf, x, a_h, a_w):
+    """K1 and K2 on x (N, H, W, C) timed beside their plain versions and
+    one-call PyTorch yardsticks; the rows, without their bounds."""
+    xb = x.numel() * x.element_size()
+    sb = (a_h.numel() + a_w.numel()) * 4     # K1's f32 sums
+    gb = (a_h.numel() + a_w.numel()) * x.element_size()   # K2's gates
+    rows = dict(
+        strip_pools=timed(
+            torch, lambda: cf.strip_pools(x),
+            lambda: (torch.sum(x, 2, dtype=torch.float32),
+                     torch.sum(x, 1, dtype=torch.float32)),
+            lambda: cf.strip_pools_reference(x)),
+        gate_add=timed(
+            torch, lambda: cf.gate_add(x, a_h, a_w),
+            lambda: torch.addcmul(x, a_h[:, :, None, :], a_w[:, None, :, :]),
+            lambda: cf.gate_add_reference(x, a_h, a_w)))
+    rows['strip_pools'].update(
+        library='torch.sum(x, 2, dtype=f32) + torch.sum(x, 1, dtype=f32), '
+                'two calls', bytes=xb + sb, flops=2 * x.numel())
+    rows['gate_add'].update(
+        library='torch.addcmul(x, a_h[:,:,None,:], a_w[:,None,:,:])',
+        bytes=2 * xb + gb, flops=2 * x.numel())
+    return rows
+
+
 def phase_kernel_timing(torch, cf, err):
     """K1 and K2 at the Up-stage shapes of the B=14 slide batch (126
     tiles, f32 x as in the model), K2b at those of the B=8 train batch
     (bf16, as the train step gives them), each beside its plain version
     and a one-call PyTorch yardstick; then each held against its plain
     version on those inputs, its max abs error folded into err. K1 and K2
-    are also held against theirs at the bf16 train shapes."""
+    are also held against theirs at the bf16 train shapes, and timed there
+    beside their yardsticks (``train_bf16``)."""
     n = 14 * 9
     per = {name: [] for name in KERNELS}
     for h, w, c in STAGES:
         x = torch.randn((n, h, w, c), device='cuda')
         a_h = torch.rand((n, h, c), device='cuda')
         a_w = torch.rand((n, w, c), device='cuda')
-        xb, sb = x.numel() * 4, (n * h * c + n * w * c) * 4
-        rows = {
-            'strip_pools': dict(
-                ms=event_ms(torch, lambda: cf.strip_pools(x)),
-                plain_ms=event_ms(torch,
-                                  lambda: cf.strip_pools_reference(x)),
-                library_ms=event_ms(torch, lambda: (
-                    torch.sum(x, 2, dtype=torch.float32),
-                    torch.sum(x, 1, dtype=torch.float32))),
-                library='torch.sum(x, 2, dtype=f32) + torch.sum(x, 1, '
-                        'dtype=f32), two calls',
-                bytes=xb + sb, flops=2 * x.numel()),
-            'gate_add': dict(
-                ms=event_ms(torch, lambda: cf.gate_add(x, a_h, a_w)),
-                plain_ms=event_ms(torch, lambda: cf.gate_add_reference(
-                    x, a_h, a_w)),
-                library_ms=event_ms(torch, lambda: torch.addcmul(
-                    x, a_h[:, :, None, :], a_w[:, None, :, :])),
-                library='torch.addcmul(x, a_h[:,:,None,:], a_w[:,None,:,:])',
-                bytes=2 * xb + sb, flops=2 * x.numel()),
-        }
+        rows = coordatt_rows(torch, cf, x, a_h, a_w)
         for name, r in rows.items():
             r['shape'] = [n, h, w, c]
             per[name].append(bound(r))
@@ -1123,6 +1237,7 @@ def phase_kernel_timing(torch, cf, err):
     reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     train_checked = []
+    train_bf16 = {name: [] for name in CF_KERNELS[:2]}
     for i, (h, w, c) in enumerate(WHOLE_STAGES):
         shape = (TRAIN_BATCH, h, w, c)
         x, do, a_h, a_w = gates(torch, shape, torch.bfloat16, 100 + i)
@@ -1132,14 +1247,15 @@ def phase_kernel_timing(torch, cf, err):
         err['gate_add'] = max(err['gate_add'], e2)
         train_checked.append(dict(shape=list(shape), strip_pools_err=e1,
                                   gate_add_err=e2))
+        for name, r in coordatt_rows(torch, cf, x, a_h, a_w).items():
+            r['shape'] = list(shape)
+            train_bf16[name].append(bound(r))
         del x
-        r = dict(
-            ms=event_ms(torch, lambda: cf.gate_dots(do, a_h, a_w)),
-            plain_ms=event_ms(torch, lambda: cf.gate_dots_reference(
-                do, a_h, a_w)),
-            library_ms=event_ms(torch, lambda: (
-                torch.einsum('nhwc,nwc->nhc', do, a_w),
-                torch.einsum('nhwc,nhc->nwc', do, a_h))),
+        r = timed(torch, lambda: cf.gate_dots(do, a_h, a_w),
+                  lambda: (torch.einsum('nhwc,nwc->nhc', do, a_w),
+                           torch.einsum('nhwc,nhc->nwc', do, a_h)),
+                  lambda: cf.gate_dots_reference(do, a_h, a_w))
+        r.update(
             library='torch.einsum nhwc,nwc->nhc + nhwc,nhc->nwc (bf16, '
                     'f32 accumulation), two calls',
             bytes=(do.numel() + a_h.numel() + a_w.numel()) * 2 +
@@ -1156,8 +1272,15 @@ def phase_kernel_timing(torch, cf, err):
                                      gate_add='float32',
                                      gate_dots='bfloat16'),
          batch=dict(strip_pools=n, gate_add=n, gate_dots=TRAIN_BATCH),
+         timer='ms: CUDA event pair, host time included (as in earlier runs); '
+               'device_ms: the host hidden behind a sleep kernel',
          stages=per, train_shapes_checked=dict(dtype='bfloat16',
-                                               rows=train_checked))
+                                               rows=train_checked),
+         train_bf16=dict(batch=TRAIN_BATCH, rows=train_bf16, **{
+             f'{name}_total_{key}': sum(r[key] for r in rows)
+             for name, rows in train_bf16.items()
+             for key in ('ms', 'device_ms', 'plain_ms', 'library_ms',
+                         'library_device_ms', 'bound_ms')}))
     return per
 
 
@@ -1506,7 +1629,8 @@ def main(argv=None):
 
     # 3. kernels against their plain versions
     err = phase_kernels(torch, cf)
-    err.update(phase_window_attention_kernels(torch, wa))
+    err.update(phase_window_attention_kernels(torch, wa,
+                                              libs['window_attention']))
     err.update(phase_flash_attention_kernels(
         torch, fa, str(libs['flash_attention']['path'])))
     phase_launch_limits(torch, cf, wa, fa)
@@ -1627,7 +1751,8 @@ def main(argv=None):
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=err[name],
             **{key: sum(n * r[key] for n, r in zip(calls, rows))
-               for key in ('ms', 'plain_ms', 'library_ms')},
+               for key in ('ms', 'device_ms', 'plain_ms', 'library_ms',
+                           'library_device_ms')},
             bound_ms=sum(n * r[f'{b}_ms'] for n, r in zip(calls, rows)),
             bound_by='bytes' if all(r[f'{b}_by'] == 'bytes' for r in rows)
             else 'operations'))

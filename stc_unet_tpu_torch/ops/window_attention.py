@@ -10,21 +10,25 @@ Counterpart of ``stc_unet_tpu/ops/window_attention.py``. The kernels are in
 - K3b ``stc_window_attention_bwd`` ← ``_call_bwd``/``_bwd_kernel``: dq, dk,
   dv and dbias (summed over the windows), recomputing the forward.
 
-Both are bound by their exponentials on the card (W·H·N² of them), not by
-bytes; the source says what the design does about it.
+Both run their products on the tensor cores (bf16 MMAs, or 3xTF32 for
+float32) and are bound by their exponentials on the card (W·H·N² of
+them), not by bytes; the source says what the design does about it.
 
 The layouts are the JAX function's: q, k and v are (W, N, C) with the heads
 packed head-major (C = heads·d); they may be the thirds of one packed qkv
 row (row stride 3C, last axis contiguous). ``bias_e`` is (N, heads·N) f32:
 ``bias.permute(1, 0, 2).reshape(N, heads·N)`` of an (H, N, N) bias.
 
-Dropout draws, for element (w, h, n, m) of the attention weights, word 0 of
-Philox4x32-10 at the counter ``((w·H + h)·N + n)·N + m``, keyed by the
-64-bit ``seed`` (one int64 on the tensors' device, read there by the
-kernel, so nothing waits on the host). The kernel and the plain version
-(:func:`philox_bits` in torch integer ops) draw the same bits, so they drop
-the same elements; the backward draws them again instead of storing the
-mask. The TPU's generator gives other bits.
+Dropout draws four weights from each Philox4x32-10 call: element (w, h,
+n, m) of the attention weights takes word ``((n >> 3) & 1)·2 + (m & 1)``
+at the counter ``(w·H + h)·1024 + (n >> 4)·256 + (n & 7)·32 + (m >> 3)·4 +
+((m >> 1) & 3)``, keyed by the 64-bit ``seed`` (one int64 on the tensors'
+device, read there by the kernel, so nothing waits on the host). The four
+elements of a call are the four values one thread holds of an MMA
+accumulator in the kernels. The kernels and the plain version
+(:func:`dropout_bits` in torch integer ops) draw the same bits, so they
+drop the same elements; the backward draws them again instead of storing
+the mask. The TPU's generator gives other bits.
 
 ``window_attention`` is an autograd Function whose forward saves only
 ``(q, k, v, bias_e, seed)``, as the JAX VJP does. On CUDA tensors it
@@ -36,6 +40,8 @@ tensors it computes the plain versions (``window_attention_reference`` and
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ._build import (FLOAT, INT, PTR, UINT, check_launch, device_type,
@@ -43,17 +49,18 @@ from ._build import (FLOAT, INT, PTR, UINT, check_launch, device_type,
 
 __all__ = ['window_attention', 'window_attention_backward',
            'window_attention_reference', 'window_attention_backward_reference',
-           'philox4x32', 'philox_bits']
+           'philox4x32', 'philox_words', 'dropout_bits']
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (2, 4, 8, 16)      # the kernels' instantiations of d
-_MAX_N = 64                     # rows of a window: a thread per row
+_MAX_N = 64                     # rows of a window: a warp per 16 rows
 _BWD_CHUNKS = 64                # K3b's windows go in at most this many chunks
 _SIGNATURES = {
     'stc_window_attention_fwd': [PTR] * 6 + [INT] * 6 +
                                 [FLOAT, UINT, FLOAT, INT, PTR],
     'stc_window_attention_bwd': [PTR] * 11 + [INT] * 8 +
                                 [FLOAT, FLOAT, UINT, FLOAT, INT, PTR],
+    'stc_window_attention_smem': [INT] * 3,
 }
 _lib = None
 
@@ -99,16 +106,39 @@ def philox4x32(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def philox_bits(counter, seed):
-    """The kernels' dropout draws: word 0 of Philox4x32-10 at the counter
-    ``(counter mod 2³², counter >> 32, 0, 0)`` under the key ``(seed mod
-    2³², seed >> 32)``, as uint32 values held in int64. ``counter`` is an
-    int64 tensor of non-negative values, ``seed`` an int64 tensor of one
-    element on the same device."""
-    zero = torch.zeros_like(counter)
+def philox_words(counter, seed):
+    """The four words of Philox4x32-10 at the counter ``(counter mod 2³²,
+    counter >> 32, 0, 0)`` under the key ``(seed mod 2³², seed >> 32)``, as
+    uint32 values held in int64. ``counter`` is an int64 tensor of
+    non-negative values, ``seed`` an int64 tensor of one element on the
+    same device."""
+    zero = torch.zeros((), dtype=torch.int64, device=counter.device)
     key = seed.reshape(())
     return philox4x32(counter & _M32, (counter >> 32) & _M32, zero, zero,
-                      key & _M32, (key >> 32) & _M32)[0]
+                      key & _M32, (key >> 32) & _M32)
+
+
+def dropout_bits(shape, seed):
+    """The kernels' dropout draws for attention weights of shape (W, H, N,
+    N): per element, the uint32 word (held in int64) that keeps it when
+    below the threshold. Element (w, h, n, m) takes word ``((n >> 3) & 1)·2
+    + (m & 1)`` of Philox4x32-10 at the counter ``(w·H + h)·1024 + (n >>
+    4)·256 + (n & 7)·32 + (m >> 3)·4 + ((m >> 1) & 3)``, given as the words
+    ``(counter mod 2³², counter >> 32, 0, 0)``, under the key ``(seed mod
+    2³², seed >> 32)``; ``seed`` is an int64 tensor of one element. The
+    four words of a call go to rows n, n + 8 and columns m, m + 1 (n mod 16
+    < 8, m even)."""
+    w, h, n, _ = shape
+    device = seed.device
+    r = torch.arange(n, device=device)
+    call = (((r >> 4) << 8) | ((r & 7) << 5))[:, None] | \
+        (((r >> 3) << 2) | ((r >> 1) & 3))[None, :]
+    word = (((r >> 3) & 1) * 2)[:, None] + (r & 1)[None, :]
+    # every call of the (W·H, 1024) counters, its four words side by side
+    counter = (torch.arange(w * h, device=device) << 10)[:, None] + \
+        torch.arange(1024, device=device)
+    words = torch.stack(philox_words(counter, seed), -1).reshape(w * h, 4096)
+    return words[:, (4 * call + word).reshape(-1)].reshape(w, h, n, n)
 
 
 def _dropout_consts(rate: float, dtype):
@@ -119,12 +149,22 @@ def _dropout_consts(rate: float, dtype):
     return thresh, torch.tensor(1.0 / keep, dtype=dtype).item()
 
 
+@functools.lru_cache(maxsize=None)
+def _launch_scalars(scale: float, rate: float, dtype):
+    """A launch's scalars: scale rounded to dtype, and the dropout's
+    threshold, multiplier and switch; computed once per (scale, rate,
+    dtype), not at every launch."""
+    thresh, mult = _dropout_consts(rate, dtype) if rate > 0 else (0, 1.0)
+    return torch.tensor(scale, dtype=dtype).item(), thresh, mult, \
+        int(rate > 0)
+
+
 def _drop_mult(seed, shape, rate: float, dtype, device):
     """The inverted-dropout multiplier (W, H, N, N) in dtype: 1/keep where
-    the element's Philox draw is below the threshold, else 0."""
+    the element's Philox draw (:func:`dropout_bits`) is below the
+    threshold, else 0."""
     thresh, mult = _dropout_consts(rate, dtype)
-    counter = torch.arange(shape.numel(), device=device).reshape(shape)
-    keep = philox_bits(counter, seed.to(device)) < thresh
+    keep = dropout_bits(shape, seed.to(device)) < thresh
     return keep.to(dtype) * torch.tensor(mult, dtype=dtype, device=device)
 
 
@@ -259,10 +299,8 @@ def _kernel_args(q, k, v, bias_e, seed, heads, scale, rate):
     if seed.dtype != torch.int64 or seed.numel() != 1 or \
             seed.device != q.device:
         raise ValueError('seed must be one int64 on the device of q')
-    thresh, mult = _dropout_consts(rate, q.dtype) if rate > 0 else (0, 1.0)
-    scale_q = torch.tensor(scale, dtype=q.dtype).item()
     return (_DTYPES[q.dtype], w, n, heads, d, lds.pop()), \
-        (scale_q, thresh, mult, int(rate > 0))
+        _launch_scalars(float(scale), float(rate), q.dtype)
 
 
 def _fwd_kernel(q, k, v, bias_e, seed, heads, scale, rate):
@@ -312,15 +350,19 @@ def _bwd_kernel(q, k, v, bias_e, seed, do, heads, scale, rate):
     return dq, dk, dv, dbias
 
 
+def _forward(q, k, v, bias_e, seed, heads, scale, rate):
+    if q.device.type == 'cpu':
+        return window_attention_reference(q, k, v, bias_e, seed, heads,
+                                          scale, rate)
+    return _fwd_kernel(q, k, v, bias_e, seed, heads, scale, rate)
+
+
 class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias_e, seed, heads, scale, rate):
         ctx.save_for_backward(q, k, v, bias_e, seed)
         ctx.heads, ctx.scale, ctx.rate = heads, scale, rate
-        if q.device.type == 'cpu':
-            return window_attention_reference(q, k, v, bias_e, seed, heads,
-                                              scale, rate)
-        return _fwd_kernel(q, k, v, bias_e, seed, heads, scale, rate)
+        return _forward(q, k, v, bias_e, seed, heads, scale, rate)
 
     @staticmethod
     def backward(ctx, do):
@@ -342,7 +384,12 @@ def window_attention(q, k, v, bias_e, seed, heads: int, scale: float,
     attention dropout. Differentiable in q, k, v and bias_e.
     """
     device_type(q, 'window_attention')
-    return _WindowAttention.apply(q, k, v, bias_e, seed, heads, scale, rate)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, bias_e)):
+        return _WindowAttention.apply(q, k, v, bias_e, seed, heads, scale,
+                                      rate)
+    # nothing to differentiate: no autograd node (its host time saved)
+    return _forward(q, k, v, bias_e, seed, heads, scale, rate)
 
 
 window_attention.launches = 0

@@ -12,7 +12,9 @@ probe's four slide-tile decoder stages (B=14 tiles, hw x hw x C =
 - the two f32 ``torch.sum`` calls (P's plain version, the yardstick),
 
 each with CUDA events (median of 10 calls after 2), beside the bound: x
-read once and the two f32 outputs written, over 3.35 TB/s. P is held to
+read once and the two f32 outputs written, over 3.35 TB/s. Each is timed
+twice (``tools/timing.py``): ``*_ms`` with the host's time to queue the
+call, ``*_device_ms`` with the host's work hidden. P is held to
 its plain version at each stage (rtol 1e-5, atol 1e-4, as K1; two runs
 bit-identical). It prints one JSON line and writes no file. It needs a
 CUDA card::
@@ -23,26 +25,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import sys
 
 STAGES = [(32, 1024), (64, 512), (128, 256), (256, 128)]
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
-
-
-def _event_ms(torch, fn, warmup=2, iters=10):
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def check_dual_pools(x):
@@ -69,6 +55,7 @@ def probe(batch: int = 14, seed: int = 0, check: bool = True) -> dict:
 
     from stc_unet_tpu_torch.ops import coordatt_fused as cf
     from stc_unet_tpu_torch.ops import dual_pools as dp
+    from stc_unet_tpu_torch.tools.timing import device_ms, event_ms
     if not torch.cuda.is_available():
         raise RuntimeError('probe_coordatt needs a CUDA card')
     g = torch.Generator(device='cuda').manual_seed(seed)
@@ -79,22 +66,27 @@ def probe(batch: int = 14, seed: int = 0, check: bool = True) -> dict:
         e = check_dual_pools(x) if check else None
         err = max(err, e or 0.0)
         out_bytes = (batch * hw * c * 2) * 4
+        calls = dict(dual_pools=lambda: dp.dual_pools(x),
+                     strip_pools=lambda: cf.strip_pools(x),
+                     torch_sums=lambda: dp.dual_pools_reference(x))
         stages.append(dict(
             hw=hw, c=c, batch=batch,
-            dual_pools_ms=_event_ms(torch, lambda: dp.dual_pools(x)),
-            strip_pools_ms=_event_ms(torch, lambda: cf.strip_pools(x)),
-            torch_sums_ms=_event_ms(torch,
-                                    lambda: dp.dual_pools_reference(x)),
+            **{f'{name}_ms': event_ms(fn) for name, fn in calls.items()},
+            **{f'{name}_device_ms': device_ms(fn)
+               for name, fn in calls.items()},
             bound_ms=(x.numel() * 2 + out_bytes) / HBM_BYTES_PER_S * 1e3,
             bytes=x.numel() * 2 + out_bytes, flops=2 * x.numel(),
             **({} if e is None else dict(dual_pools_max_abs_err=e))))
         del x
         torch.cuda.empty_cache()
     total = {k: sum(s[k] for s in stages) for k in
-             ('dual_pools_ms', 'strip_pools_ms', 'torch_sums_ms', 'bound_ms')}
+             ('dual_pools_ms', 'strip_pools_ms', 'torch_sums_ms',
+              'dual_pools_device_ms', 'strip_pools_device_ms',
+              'torch_sums_device_ms', 'bound_ms')}
     return dict(probe='coordatt strip pools', dtype='bfloat16',
                 device=torch.cuda.get_device_name(0),
-                timer='CUDA events, median of 10 after 2',
+                timer='CUDA events, median of 10 after 2; *_device_ms with '
+                      'the host hidden behind a sleep kernel',
                 stages=stages, total=total, **({} if not check else dict(
                     dual_pools_max_abs_err=err,
                     tolerance='rtol 1e-5 atol 1e-4 against two f32 '

@@ -39,7 +39,6 @@ import importlib
 import json
 import os
 import re
-import statistics
 import subprocess
 import sys
 
@@ -155,21 +154,6 @@ def count_sass(sass: str) -> dict:
     return {k: dict(v) for k, v in out.items()}
 
 
-def _event_ms(torch, fn, warmup=2, iters=5):
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 @contextlib.contextmanager
 def _library(fa, path):
     """The flash-attention wrappers launching the kernels of ``path``."""
@@ -202,6 +186,8 @@ def probe(seed: int = 0) -> dict:
     keep the function to the plain versions; the record."""
     import torch
 
+    from stc_unet_tpu_torch.tools.timing import event_ms
+
     # the package's ``flash_attention`` is the function; this is its module
     fa = importlib.import_module('stc_unet_tpu_torch.ops.flash_attention')
     if not torch.cuda.is_available():
@@ -223,10 +209,10 @@ def probe(seed: int = 0) -> dict:
     for name, (path, log) in libs.items():
         with _library(fa, path):
             row = dict(
-                dkv_ms=_event_ms(torch, lambda: fa.flash_attention_bwd_dkv(
-                    q, k, v, lse, do, di, scale)),
-                dq_ms=_event_ms(torch, lambda: fa.flash_attention_bwd_dq(
-                    q, k, v, lse, do, di, scale)),
+                dkv_ms=event_ms(lambda: fa.flash_attention_bwd_dkv(
+                    q, k, v, lse, do, di, scale), iters=5),
+                dq_ms=event_ms(lambda: fa.flash_attention_bwd_dq(
+                    q, k, v, lse, do, di, scale), iters=5),
                 ptxas=ptxas_usage(log), sass=sass_counts(path))
             if name in SAME_FUNCTION:
                 dk, dv = fa.flash_attention_bwd_dkv(

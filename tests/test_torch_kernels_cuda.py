@@ -14,9 +14,11 @@ plain version: f32 rtol 1e-4 and atol 1e-5 of the largest value; in bf16
 an attention weight or a ds entry may round to the other neighbour, so
 rtol 2^-7 and atol 2^-7 of the largest value (dbias stays f32). At rate
 0.1 both draw the same Philox mask, so the rate-0 limits hold; K3b's
-reruns are bit-identical. Lf, Ldkv and Ldq (flash attention, f32) sum in
-another order and with an online softmax: rtol 1e-4 and atol 1e-5 of the
-largest value; their reruns are bit-identical, and do not change with
+reruns are bit-identical. The K3 edge cases cover N of 1 to 64, every head
+width, W of 1 to 65536 and rows of any alignment. Lf, Ldkv and Ldq (flash
+attention, f32) sum in another order and with an online softmax: rtol
+1e-4 and atol 1e-5 of the largest value; their reruns are bit-identical,
+and do not change with
 ``torch.backends.cuda.matmul.allow_tf32``. P (the probe's dual strip
 pool) as K1. Every family but P is also held to its plain version at the
 65535 that a grid's y or z holds and one past it (N images, W windows,
@@ -168,6 +170,60 @@ def test_window_attention_matches_plain_versions_on_card(
                                                         before[1] + 2)
     assert out.dtype == dtype and grads[3].dtype == torch.float32
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    _close(out, twa.window_attention_reference(q, k, v, bias_e, seed, heads,
+                                               scale, rate), dtype)
+    refs = twa.window_attention_backward_reference(q, k, v, bias_e, seed, do,
+                                                   heads, scale, rate)
+    for i, (got, want) in enumerate(zip(grads, refs)):
+        _close(got, want, dtype, f32_exact=i == 3)
+
+
+def _window_inputs(device, w, n, c, heads, dtype, layout, seed):
+    """q, k, v, bias_e, seed, do. ``layout``: 'qkv' the thirds of one qkv
+    row (stride 3C), 'own' three contiguous tensors (stride C), 'odd' the
+    thirds of rows of 3C + 1 (2-byte aligned rows in bf16)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if layout == 'own':
+        q, k, v = (torch.randn((w, n, c), generator=g, device=device)
+                   .to(dtype) for _ in range(3))
+    else:
+        qkv = torch.randn((w, n, 3 * c + (layout == 'odd')), generator=g,
+                          device=device).to(dtype)
+        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:3 * c]
+    bias_e = 0.1 * torch.randn((n, heads * n), generator=g, device=device)
+    sd = torch.randint(2 ** 62, (1,), generator=g, device=device)
+    do = torch.randn((w, n, c), generator=g, device=device).to(dtype)
+    return q, k, v, bias_e, sd, do
+
+
+# K3f and K3b give a warp 16 rows, take keys in 8 tiles of 8 and pad d to
+# 8 or 16: N of 1, 33, 49, 63 and 64, every d, W of 1, odd ones that are no
+# multiple of K3b's chunk and 65536, row strides of C, 3C and 3C + 1, and
+# 3 heads of d = 2, whose k and v thirds start 12 bytes apart in bf16
+WINDOW_EDGES = [(1, 1, 8, 4, 'qkv'), (1, 64, 512, 32, 'own'),
+                (131, 63, 32, 4, 'qkv'), (3, 64, 6, 3, 'qkv'),
+                (7, 49, 64, 4, 'own'), (9, 33, 24, 6, 'odd'),
+                (65, 64, 16, 4, 'odd'), (65536, 4, 4, 2, 'qkv')]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('w,n,c,heads,layout', WINDOW_EDGES)
+def test_window_attention_tiling_edges_on_card(cuda_device, w, n, c, heads,
+                                               layout, dtype, rate):
+    """K3f and K3b at the edges of their tiling and copies, against their
+    plain versions (the same draws at rate 0.1); K3b's rerun
+    bit-identical."""
+    q, k, v, bias_e, seed, do = _window_inputs(cuda_device, w, n, c, heads,
+                                               dtype, layout, 8)
+    scale = heads ** -0.5
+    out = twa.window_attention(q, k, v, bias_e, seed, heads, scale, rate)
+    grads = twa.window_attention_backward(q, k, v, bias_e, seed, do, heads,
+                                          scale, rate)
+    assert all(torch.equal(a, b) for a, b in zip(
+        grads, twa.window_attention_backward(q, k, v, bias_e, seed, do,
+                                             heads, scale, rate)))
     _close(out, twa.window_attention_reference(q, k, v, bias_e, seed, heads,
                                                scale, rate), dtype)
     refs = twa.window_attention_backward_reference(q, k, v, bias_e, seed, do,
