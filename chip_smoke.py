@@ -16,8 +16,11 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
 2. builds the CUDA kernels from ``stc_unet_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card: K1
    ``strip_pools``, K2 ``gate_add`` and K2b ``gate_dots`` at the Up-stage
-   shapes of the slide tiles and of whole 512² images, and at odd shapes,
-   with bit-identical reruns for K1 and K2b; K3f ``window_attention`` and
+   shapes of the slide tiles and of whole 512² images, at odd shapes and
+   at the edges of K1's and K2b's tiling, some with inputs off 16-byte
+   alignment, with bit-identical reruns for K1 and K2b, after checking
+   that each vector build of K1 and K2b holds 128-bit global loads;
+   K3f ``window_attention`` and
    K3b ``window_attention_backward`` at MaxViT's B=8 stage shapes, at rate
    0.1 with the same seed (the same dropout mask), and at odd shapes and
    row layouts at rates 0 and 0.1, with bit-identical reruns of K3b, after
@@ -41,7 +44,8 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
    train batch, bf16) beside its plain version, a one-call PyTorch
    yardstick and its bound (bytes over 3.35 TB/s), and checks it against
    its plain version there too, K1 and K2 also at the B=8 train shapes in
-   bf16, where they are timed too. Every kernel and yardstick is timed
+   bf16, where they are timed too; K1 and K2b rows give their achieved
+   GB/s. Every kernel and yardstick is timed
    twice: ``ms`` with an event pair around the call (the host's time to
    queue it included, as in every earlier run) and ``device_ms`` with the
    host's work hidden behind a sleep kernel
@@ -124,6 +128,16 @@ STAGES = [(32, 32, 1024), (64, 64, 512), (128, 128, 256), (256, 256, 128)]
 WHOLE_STAGES = [(2 * h, 2 * w, c) for h, w, c in STAGES]   # 512² images
 TRAIN_BATCH = 8              # bench.py's train step: B=8 at 512², bf16
 ODD = [(3, 37, 53, 24), (2, 19, 23, 13), (1, 130, 71, 40)]
+# edges of K1's and K2b's tiling (64 rows a band, channel tiles of 64 bf16
+# or 32 f32 in 16-byte vectors, else one element a lane; chunks of 16 or 32
+# pixels in groups of 8): C of 13, 24, 40 and 1024; H of 1, 64, 65, 513 and
+# 1025 (past 8 bands); W of 1 and 2049. STRIP_UNALIGNED also run with every
+# input one element past a 16-byte boundary (the scalar path).
+STRIP_EDGES = [(2, 5, 7, 13), (3, 9, 11, 24), (1, 33, 6, 40),
+               (2, 64, 3, 1024), (3, 1, 5, 64), (2, 64, 9, 64),
+               (1, 65, 7, 64), (1, 513, 3, 64), (1, 1025, 2, 32),
+               (2, 5, 1, 64), (1, 5, 2049, 64), (1, 70, 2049, 32)]
+STRIP_UNALIGNED = [(2, 64, 3, 1024), (1, 65, 7, 64), (1, 5, 2049, 64)]
 SLIDE = dict(mode='slide', crop_size=(256, 256), stride=(170, 170))
 CF_SOURCE = 'stc_unet_tpu_torch/csrc/coordatt_fused.cu'
 WA_SOURCE = 'stc_unet_tpu_torch/csrc/window_attention.cu'
@@ -334,25 +348,58 @@ def gates(torch, shape, dtype, seed):
     return x, do, a_h, a_w
 
 
-def phase_kernels(torch, cf):
+def unaligned(torch, t):
+    """A copy of t one element (2 or 4 bytes) past a 16-byte boundary: a
+    contiguous slice of a larger tensor."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = flat[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def strip_loads(library):
+    """The global loads of each K1/K2b build of the built library, from
+    ``cuobjdump -sass``: {'strip_band<bf16, 8, pools>': {'LDG.E.128...':
+    n, ...}, ...}. Each vector build (4 floats or 8 bfloat16 a lane) must
+    hold 128-bit global loads (or bulk or tensor-map copies)."""
+    from stc_unet_tpu_torch.tools.probe_strip_pools import vector_loads
+    loads = vector_loads(sass_of(library))
+    vector = {k: v for k, v in loads.items() if ', 1, ' not in k}
+    if len(loads) != 8 or len(vector) != 4 or not all(
+            any(op.startswith(('LDG.E.128', 'UBLKCP', 'UTMALDG'))
+                for op in ops) for ops in vector.values()):
+        raise AssertionError(f'K1/K2b: not 8 builds, each vector build with '
+                             f'128-bit or bulk loads: {loads}')
+    return loads
+
+
+def phase_kernels(torch, cf, library):
     """K1, K2 and K2b against their plain versions on the card, at the
     Up-stage shapes of slide tiles and of whole 512² images (N=2: the
-    whole and the train geometry) and odd shapes."""
+    whole and the train geometry), odd shapes and the edges of K1's and
+    K2b's tiling, some with unaligned inputs; first, each vector build of
+    K1 and K2b in the built library must hold 128-bit loads."""
+    loads = strip_loads(library)
     err = dict.fromkeys(KERNELS, 0.0)
     checked = []
-    shapes = [(2,) + s for s in STAGES + WHOLE_STAGES] + ODD
+    shapes = [(2,) + s for s in STAGES + WHOLE_STAGES] + ODD + STRIP_EDGES
+    cases = [(s, False) for s in shapes] + [(s, True)
+                                            for s in STRIP_UNALIGNED]
     for dtype in (torch.float32, torch.bfloat16):
-        for i, shape in enumerate(shapes):
+        for i, (shape, off) in enumerate(cases):
             x, do, a_h, a_w = gates(torch, shape, dtype, i)
+            if off:
+                x, do, a_h, a_w = (unaligned(torch, t)
+                                   for t in (x, do, a_h, a_w))
             e1, e2 = check_kernels(torch, cf, x, a_h, a_w)
             e3 = check_gate_dots(torch, cf, do, a_h, a_w)
             for name, e in zip(KERNELS, (e1, e2, e3)):
                 err[name] = max(err[name], e)
             checked.append(dict(shape=list(shape), dtype=str(dtype)[6:],
-                                strip_pools_err=e1, gate_add_err=e2,
-                                gate_dots_err=e3))
+                                unaligned=off, strip_pools_err=e1,
+                                gate_add_err=e2, gate_dots_err=e3))
             del x, do, a_h, a_w
-    emit('kernels', ok=True, checked=checked,
+    emit('kernels', ok=True, checked=checked, strip_sass_loads=loads,
          tolerance=dict(
              strip_pools='rtol 1e-5 atol 1e-4, bit-identical reruns',
              gate_add='f32 rtol/atol 1e-6; bf16 <= 1 ulp',
@@ -910,10 +957,12 @@ def phase_launch_limits(torch, cf, wa, fa):
                 KERNELS[:8], (e1, e2, e3, e4, e5, e6, e7, e8))}))
         torch.cuda.empty_cache()
     emit('launch_limits', ok=True, checked=checked,
-         axes='K1/K2b: N images (a 1-D grid of N * bands * ceil(C / 32) '
-              'blocks), K2 (N * H); K3f/K3b: W windows (grid.y = ceil(W / '
-              'windows a block) <= 4096, K3b in at most 64 chunks); '
-              'Lf/Ldkv/Ldq: N·heads (a 1-D grid of N·heads·row tiles)',
+         axes='K1/K2b: N images (a 1-D grid of N * bands * channel tiles '
+              'blocks: tiles of 32 f32 or 64 bf16 channels in vectors, 8 '
+              'on the scalar path that C = 33 takes), K2 (N * H); '
+              'K3f/K3b: W windows (grid.y = ceil(W / windows a block) <= '
+              '4096, K3b in at most 64 chunks); Lf/Ldkv/Ldq: N·heads (a 1-D '
+              'grid of N·heads·row tiles)',
          tolerance='as kernels, window_attention_kernels and '
                    'flash_attention_kernels; every kernel\'s rerun '
                    'bit-identical')
@@ -1183,6 +1232,12 @@ def bound(r, flop_rate=F32_FLOPS, key='bound'):
     return r
 
 
+def achieved(r):
+    """r's achieved rate, its bytes over its device time, as ``gb_s``."""
+    r['gb_s'] = r['bytes'] / (r['device_ms'] * 1e-3) / 1e9
+    return r
+
+
 def coordatt_rows(torch, cf, x, a_h, a_w):
     """K1 and K2 on x (N, H, W, C) timed beside their plain versions and
     one-call PyTorch yardsticks; the rows, without their bounds."""
@@ -1208,6 +1263,32 @@ def coordatt_rows(torch, cf, x, a_h, a_w):
     return rows
 
 
+def gate_dots_row(torch, cf, do, a_h, a_w):
+    """K2b on do timed beside its plain version and two einsums (cuBLAS's
+    reductions kept in f32), then held against its plain version; the row
+    with its bound and achieved rate."""
+    dtype = str(do.dtype)[6:]
+    r = timed(torch, lambda: cf.gate_dots(do, a_h, a_w),
+              lambda: (torch.einsum('nhwc,nwc->nhc', do, a_w),
+                       torch.einsum('nhwc,nhc->nwc', do, a_h)),
+              lambda: cf.gate_dots_reference(do, a_h, a_w))
+    r.update(
+        library=f'torch.einsum nhwc,nwc->nhc + nhwc,nhc->nwc ({dtype}, '
+                'f32 accumulation), two calls',
+        bytes=(do.numel() + a_h.numel() + a_w.numel()) * do.element_size() +
+        (a_h.numel() + a_w.numel()) * 4,
+        flops=4 * do.numel(), shape=list(do.shape),
+        max_abs_err=check_gate_dots(torch, cf, do, a_h, a_w))
+    return achieved(bound(r))
+
+
+def totals(rows, keys=('ms', 'device_ms', 'plain_ms', 'library_ms',
+                       'library_device_ms', 'bound_ms')):
+    """{name}_total_{key} over each kernel's rows."""
+    return {f'{name}_total_{key}': sum(r[key] for r in rs)
+            for name, rs in rows.items() for key in keys}
+
+
 def phase_kernel_timing(torch, cf, err):
     """K1 and K2 at the Up-stage shapes of the B=14 slide batch (126
     tiles, f32 x as in the model), K2b at those of the B=8 train batch
@@ -1215,9 +1296,13 @@ def phase_kernel_timing(torch, cf, err):
     and a one-call PyTorch yardstick; then each held against its plain
     version on those inputs, its max abs error folded into err. K1 and K2
     are also held against theirs at the bf16 train shapes, and timed there
-    beside their yardsticks (``train_bf16``)."""
+    beside their yardsticks (``train_bf16``, with K2b's rows), and K2b is
+    timed and held at the slide shapes in f32 too (``slide_f32``). Every
+    K1 and K2b row has its achieved rate (``gb_s``: bytes over
+    device_ms)."""
     n = 14 * 9
     per = {name: [] for name in KERNELS}
+    slide_f32 = dict(gate_dots=[])
     for h, w, c in STAGES:
         x = torch.randn((n, h, w, c), device='cuda')
         a_h = torch.rand((n, h, c), device='cuda')
@@ -1226,18 +1311,22 @@ def phase_kernel_timing(torch, cf, err):
         for name, r in rows.items():
             r['shape'] = [n, h, w, c]
             per[name].append(bound(r))
+        achieved(rows['strip_pools'])
         e1, e2 = check_kernels(torch, cf, x, a_h, a_w)
         err['strip_pools'] = max(err['strip_pools'], e1)
         err['gate_add'] = max(err['gate_add'], e2)
         rows['strip_pools']['max_abs_err'] = e1
         rows['gate_add']['max_abs_err'] = e2
+        r = gate_dots_row(torch, cf, x, a_h, a_w)   # x as do
+        err['gate_dots'] = max(err['gate_dots'], r['max_abs_err'])
+        slide_f32['gate_dots'].append(r)
         del x, a_h, a_w
         torch.cuda.empty_cache()
     # K2b's yardstick: two einsums, with cuBLAS's reductions kept in f32
     reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     train_checked = []
-    train_bf16 = {name: [] for name in CF_KERNELS[:2]}
+    train_bf16 = {name: [] for name in CF_KERNELS}
     for i, (h, w, c) in enumerate(WHOLE_STAGES):
         shape = (TRAIN_BATCH, h, w, c)
         x, do, a_h, a_w = gates(torch, shape, torch.bfloat16, 100 + i)
@@ -1250,20 +1339,12 @@ def phase_kernel_timing(torch, cf, err):
         for name, r in coordatt_rows(torch, cf, x, a_h, a_w).items():
             r['shape'] = list(shape)
             train_bf16[name].append(bound(r))
+        achieved(train_bf16['strip_pools'][-1])
         del x
-        r = timed(torch, lambda: cf.gate_dots(do, a_h, a_w),
-                  lambda: (torch.einsum('nhwc,nwc->nhc', do, a_w),
-                           torch.einsum('nhwc,nhc->nwc', do, a_h)),
-                  lambda: cf.gate_dots_reference(do, a_h, a_w))
-        r.update(
-            library='torch.einsum nhwc,nwc->nhc + nhwc,nhc->nwc (bf16, '
-                    'f32 accumulation), two calls',
-            bytes=(do.numel() + a_h.numel() + a_w.numel()) * 2 +
-            (a_h.numel() + a_w.numel()) * 4,
-            flops=4 * do.numel(), shape=list(shape),
-            max_abs_err=check_gate_dots(torch, cf, do, a_h, a_w))
+        r = gate_dots_row(torch, cf, do, a_h, a_w)
         err['gate_dots'] = max(err['gate_dots'], r['max_abs_err'])
-        per['gate_dots'].append(bound(r))
+        per['gate_dots'].append(r)
+        train_bf16['gate_dots'].append(r)
         del do, a_h, a_w
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         reduced
@@ -1276,11 +1357,9 @@ def phase_kernel_timing(torch, cf, err):
                'device_ms: the host hidden behind a sleep kernel',
          stages=per, train_shapes_checked=dict(dtype='bfloat16',
                                                rows=train_checked),
-         train_bf16=dict(batch=TRAIN_BATCH, rows=train_bf16, **{
-             f'{name}_total_{key}': sum(r[key] for r in rows)
-             for name, rows in train_bf16.items()
-             for key in ('ms', 'device_ms', 'plain_ms', 'library_ms',
-                         'library_device_ms', 'bound_ms')}))
+         train_bf16=dict(batch=TRAIN_BATCH, rows=train_bf16,
+                         **totals(train_bf16)),
+         slide_f32=dict(batch=n, rows=slide_f32, **totals(slide_f32)))
     return per
 
 
@@ -1628,7 +1707,7 @@ def main(argv=None):
                 if 'registers' in ln or 'spill' in ln][:120])
 
     # 3. kernels against their plain versions
-    err = phase_kernels(torch, cf)
+    err = phase_kernels(torch, cf, str(libs['coordatt_fused']['path']))
     err.update(phase_window_attention_kernels(torch, wa,
                                               libs['window_attention']))
     err.update(phase_flash_attention_kernels(

@@ -17,7 +17,9 @@ All three are bound by memory bytes on the card: the least time is the
 bytes they must move over the 3.35 TB/s of an H100 SXM (K1: x once plus the
 two small outputs; K2: x and out, plus a_h and a_w; K2b: do once plus a_h,
 a_w and the two small outputs). The source says what each design does
-about that bound.
+about that bound. K1 and K2b are one kernel over bands of rows and a small
+second pass that adds the bands; ``strip_plan`` gives their launch from the
+shape and the alignment alone.
 
 On a CUDA tensor each wrapper checks its inputs, launches its kernel and
 adds one to its ``launches`` count; it raises on anything the kernel does
@@ -37,17 +39,19 @@ import torch
 from ._build import INT, PTR, check_launch, load_kernels, stream_ptr
 
 __all__ = ['strip_pools', 'gate_add', 'gate_dots', 'strip_pools_reference',
-           'gate_add_reference', 'gate_dots_reference']
+           'gate_add_reference', 'gate_dots_reference', 'strip_plan']
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_POOL_BAND_ROWS = 64   # rows per block of K1's and K2b's first pass (kPoolBand)
+# K1's and K2b's geometry (csrc/coordatt_fused.cu): lanes a worker (8
+# vectors of 16 bytes), workers (rows) a warp, warps a block
+_LANES, _SLOTS, _MAX_WARPS = 8, 4, 16
 _lib = None
 
 
 _SIGNATURES = {
-    'stc_strip_pools': [PTR] * 4 + [INT] * 6 + [PTR],
+    'stc_strip_pools': [PTR] * 4 + [INT] * 8 + [PTR],
     'stc_gate_add': [PTR] * 4 + [INT] * 6 + [PTR],
-    'stc_gate_dots': [PTR] * 6 + [INT] * 6 + [PTR],
+    'stc_gate_dots': [PTR] * 6 + [INT] * 8 + [PTR],
 }
 
 
@@ -90,29 +94,57 @@ def strip_pools_reference(x):
     return xf.sum(2), xf.sum(1)
 
 
-def _strip_outputs(x):
-    """The two f32 strip outputs of K1/K2b, (N,H,C) and (N,W,C), their band
-    count and the (N, bands, W, C) f32 scratch of the first pass."""
+def strip_plan(shape, itemsize, aligned):
+    """The launch of K1 or K2b on x (N, H, W, C), from the shape, the
+    element size and whether the inputs (x; a_h and a_w for K2b) are
+    16-byte aligned; the outputs and the scratch, fresh from the caching
+    allocator, are.
+
+    ``vec``: 16-byte vectors (``width`` elements a lane) where C is a
+    multiple of a channel tile of 8 vectors (64 bfloat16 or 32 floats) and
+    the pointers are aligned, else one element a lane (``width`` 1).
+    ``warps`` a block (up to 16; fewer when H is short), each block one of
+    ``bands`` bands of ``4 * warps`` rows and one of ``tiles`` channel
+    tiles; ``blocks`` in all. With more than one band the bands' column
+    sums go through an f32 scratch of ``scratch`` (N, bands, W, C) and a
+    second pass adds them; else it is None.
+    """
+    n, h, w, c = shape
+    per_vec = 16 // itemsize
+    vec = bool(aligned) and c % (_LANES * per_vec) == 0
+    width = per_vec if vec else 1
+    warps = min(_MAX_WARPS, -(-h // _SLOTS))
+    bands = -(-h // (warps * _SLOTS))
+    tiles = -(-c // (_LANES * width))
+    return dict(vec=int(vec), width=width, warps=warps, bands=bands,
+                tiles=tiles, blocks=n * bands * tiles,
+                scratch=(n, bands, w, c) if bands > 1 else None)
+
+
+def _strip_launch(fn, what, x, gates):
+    """K1 (``gates`` empty) or K2b (``gates`` a_h, a_w) on x: the two f32
+    outputs, (N,H,C) and (N,W,C), after one call of ``fn``."""
     n, h, w, c = x.shape
+    plan = strip_plan(x.shape, x.element_size(),
+                      all(t.data_ptr() % 16 == 0 for t in (x, *gates)))
     rows = torch.empty((n, h, c), dtype=torch.float32, device=x.device)
     cols = torch.empty((n, w, c), dtype=torch.float32, device=x.device)
-    bands = -(-h // _POOL_BAND_ROWS)
-    scratch = (torch.empty((n, bands, w, c), dtype=torch.float32,
-                           device=x.device) if bands > 1 else cols)
-    return rows, cols, bands, scratch
+    scratch = (None if plan['scratch'] is None else torch.empty(
+        plan['scratch'], dtype=torch.float32, device=x.device))
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), *(t.data_ptr() for t in gates),
+                 rows.data_ptr(), cols.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
+                 _DTYPES[x.dtype], plan['vec'], plan['warps'],
+                 plan['bands'], n, h, w, c, stream_ptr(x))
+    check_launch(err, what)
+    return rows, cols
 
 
 def _strip_pools_kernel(x):
     _check_x(x)
-    lib = _kernels()
-    n, h, w, c = x.shape
-    sum_w, sum_h, bands, scratch = _strip_outputs(x)
-    with torch.cuda.device(x.device):
-        err = lib.stc_strip_pools(x.data_ptr(), sum_w.data_ptr(),
-                                  sum_h.data_ptr(), scratch.data_ptr(),
-                                  _DTYPES[x.dtype], bands, n, h, w, c,
-                                  stream_ptr(x))
-    check_launch(err, 'strip_pools')
+    sum_w, sum_h = _strip_launch(_kernels().stc_strip_pools, 'strip_pools',
+                                 x, ())
     strip_pools.launches += 1
     return sum_w, sum_h
 
@@ -217,14 +249,8 @@ def _gate_dots_kernel(do, a_h, a_w):
     n, h, w, c = do.shape
     _check('a_h', a_h, (n, h, c), do.dtype, do.device)
     _check('a_w', a_w, (n, w, c), do.dtype, do.device)
-    lib = _kernels()
-    dh, dw, bands, scratch = _strip_outputs(do)
-    with torch.cuda.device(do.device):
-        err = lib.stc_gate_dots(do.data_ptr(), a_h.data_ptr(), a_w.data_ptr(),
-                                dh.data_ptr(), dw.data_ptr(),
-                                scratch.data_ptr(), _DTYPES[do.dtype], bands,
-                                n, h, w, c, stream_ptr(do))
-    check_launch(err, 'gate_dots')
+    dh, dw = _strip_launch(_kernels().stc_gate_dots, 'gate_dots', do,
+                           (a_h, a_w))
     gate_dots.launches += 1
     return dh, dw
 

@@ -20,10 +20,14 @@ attention, f32) sum in another order and with an online softmax: rtol
 1e-4 and atol 1e-5 of the largest value; their reruns are bit-identical,
 and do not change with
 ``torch.backends.cuda.matmul.allow_tf32``. P (the probe's dual strip
-pool) as K1. Every family but P is also held to its plain version at the
-65535 that a grid's y or z holds and one past it (N images, W windows,
+pool) as K1. K1 and K2b are also held to theirs at the edges of their
+tiling (odd C, H past 8 bands, W of 1 and 2049, tensors one element off
+a 16-byte boundary). Every family but P is also held to its plain version at
+the 65535 that a grid's y or z holds and one past it (N images, W windows,
 N·heads), with bit-identical reruns.
 """
+import math
+
 import pytest
 import torch
 
@@ -106,6 +110,49 @@ def test_gate_dots_matches_plain_version_on_card(cuda_device, shape, dtype):
     torch.testing.assert_close(dh, eh, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(dw, ew, rtol=1e-5, atol=1e-4)
     assert torch.equal(dh, dh2) and torch.equal(dw, dw2)
+
+
+# edges of K1's and K2b's tiling (csrc/coordatt_fused.cu): C of 13, 24 and
+# 40 (the scalar path) and 1024 (16 or 32 vector tiles); H of 1, 64, 65,
+# 513 and 1025 (one band of 4 rows, one of 64, two, nine and 17 bands);
+# W of 1 and 2049 (chunks of 16 or 32 pixels, groups of 8)
+STRIP_EDGES = [(2, 5, 7, 13), (3, 9, 11, 24), (1, 33, 6, 40),
+               (2, 64, 3, 1024), (3, 1, 5, 64), (2, 64, 9, 64),
+               (1, 65, 7, 64), (1, 513, 3, 64), (1, 1025, 2, 32),
+               (2, 5, 1, 64), (1, 5, 2049, 64), (1, 70, 2049, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('misaligned', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', STRIP_EDGES)
+def test_strip_sums_tiling_edges_on_card(cuda_device, shape, dtype,
+                                         misaligned):
+    """K1 and K2b at the edges of their tiling against their plain
+    versions (rtol 1e-5, atol 1e-4), reruns bit-identical; ``misaligned``
+    takes x (or do), a_h and a_w one element (2 or 4 bytes) past a 16-byte
+    boundary, slices of larger tensors, which the wrapper runs one element
+    a lane."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    n, h, w, c = shape
+
+    def draw(*size, rand=False):
+        count = math.prod(size) + (8 if misaligned else 0)
+        fn = torch.rand if rand else torch.randn
+        t = fn(count, generator=g, device=cuda_device).to(dtype)
+        return (t[1:1 + math.prod(size)] if misaligned else t).view(size)
+    x = draw(n, h, w, c)
+    a_h = draw(n, h, c, rand=True)
+    a_w = draw(n, w, c, rand=True)
+    assert (x.data_ptr() % 16 != 0) == misaligned
+    for fn, ref, args in ((tfused.strip_pools, tfused.strip_pools_reference,
+                           (x,)),
+                          (tfused.gate_dots, tfused.gate_dots_reference,
+                           (x, a_h, a_w))):
+        got, again, want = fn(*args), fn(*args), ref(*args)
+        for a, b, e in zip(got, again, want):
+            torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-4)
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
