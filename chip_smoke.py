@@ -26,8 +26,8 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
    row layouts at rates 0 and 0.1, with bit-identical reruns of K3b, after
    checking that each of their 16 builds holds tensor-core MMAs of its
    type (bf16 or TF32); all in f32 and bf16; then every kernel of
-   the three paths at the 65535 that a grid's y or z holds and one past it
-   (N images, W windows, N·heads), against its plain version with
+   the three paths and P at the 65535 that a grid's y or z holds and one
+   past it (N images, W windows, N·heads), against its plain version with
    bit-identical reruns (``launch_limits``);
 4. serves STC-UNet slide and whole requests (B=2 at 512², bf16 images, as
    the benchmark feeds them) and checks that each forward launched K1 and
@@ -92,7 +92,12 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
    ``flash_train``: 8 Lf, 8 Ldkv and 8 Ldq launches per step);
 10. runs the CoordAtt strip-pool probe
     (``stc_unet_tpu_torch/tools/probe_coordatt.py``): kernel P against its
-    plain version, then timed beside K1 and two ``torch.sum``
+    plain version in f32 and bf16 at the probe's stages, odd shapes, the
+    edges of its tiling (C of 13 to 1024, H of 1 to 1025, W of 1 to 4097)
+    and inputs off 16-byte alignment, both ways of adding its bands,
+    with bit-identical reruns and 128-bit loads in each vector build, and
+    one kernel a call in ``torch.profiler`` (checked on small inputs right
+    after ``launch_limits``); then timed beside K1 and two ``torch.sum``
     (``coordatt_probe``).
 
     python3 chip_smoke.py
@@ -138,6 +143,19 @@ STRIP_EDGES = [(2, 5, 7, 13), (3, 9, 11, 24), (1, 33, 6, 40),
                (1, 65, 7, 64), (1, 513, 3, 64), (1, 1025, 2, 32),
                (2, 5, 1, 64), (1, 5, 2049, 64), (1, 70, 2049, 32)]
 STRIP_UNALIGNED = [(2, 64, 3, 1024), (1, 65, 7, 64), (1, 5, 2049, 64)]
+# edges of P's tiling (bands of up to 64 rows, added in a cluster up to 8
+# bands and by the last band block past 8; channel tiles of 64 bf16 or 32
+# f32 in 16-byte vectors, else 8 channels of one element a lane; chunks of
+# 16 or 32 pixels, runs of 32 chunks): C of 13, 24, 40 and 1024; H of 1,
+# 63, 64, 65, 513 and 1025; W of 1, 1753 (past P's old limit of 1752),
+# 2049 and 4097. P_UNALIGNED also run one element past a 16-byte boundary.
+P_EDGES = [(2, 5, 7, 13), (3, 9, 11, 24), (1, 33, 6, 40), (2, 64, 3, 1024),
+           (3, 1, 5, 64), (1, 63, 7, 64), (2, 64, 9, 64), (1, 65, 7, 64),
+           (1, 513, 3, 64), (1, 1025, 2, 64), (1, 1025, 3, 13),
+           (2, 5, 1, 64), (1, 5, 1753, 64), (1, 5, 2049, 64),
+           (1, 70, 2049, 32), (1, 9, 4097, 64), (1, 130, 4097, 32)]
+P_UNALIGNED = [(2, 64, 3, 1024), (1, 65, 7, 64), (1, 5, 2049, 64),
+               (1, 1025, 2, 64)]
 SLIDE = dict(mode='slide', crop_size=(256, 256), stride=(170, 170))
 CF_SOURCE = 'stc_unet_tpu_torch/csrc/coordatt_fused.cu'
 WA_SOURCE = 'stc_unet_tpu_torch/csrc/window_attention.cu'
@@ -922,12 +940,13 @@ def phase_flash_attention_timing(torch, fa, err):
 def phase_launch_limits(torch, cf, wa, fa):
     """Each kernel family at the 65535 that a grid's y or z holds
     (``GRID_YZ``) and one past it, where each now runs on grid.x or in
-    chunks: K1, K2 and K2b at N images of (2, 3, 33), f32; K3f and K3b at
-    W windows of 4 tokens, one head of 2, rate 0.1; Lf, Ldkv and Ldq at
+    chunks: K1, K2, K2b and P at N images of (2, 3, 33), f32; K3f and K3b
+    at W windows of 4 tokens, one head of 2, rate 0.1; Lf, Ldkv and Ldq at
     N·heads (Lq 3, Lk 5, d 8). Each is held to its plain version at the
-    limits of ``kernels``, ``window_attention_kernels`` and
-    ``flash_attention_kernels``, and every kernel's rerun is
-    bit-identical."""
+    limits of ``kernels``, ``window_attention_kernels``,
+    ``flash_attention_kernels`` and ``coordatt_probe``, and every kernel's
+    rerun is bit-identical."""
+    from stc_unet_tpu_torch.tools.probe_coordatt import check_dual_pools
     checked = []
     for i, count in enumerate((GRID_YZ, GRID_YZ + 1)):
         x, do, a_h, a_w = gates(torch, (count, 2, 3, 33), torch.float32,
@@ -936,6 +955,7 @@ def phase_launch_limits(torch, cf, wa, fa):
         e3 = check_gate_dots(torch, cf, do, a_h, a_w)
         same = dict(gate_add=torch.equal(cf.gate_add(x, a_h, a_w),
                                          cf.gate_add(x, a_h, a_w)))
+        e9 = check_dual_pools(x)
         del x, do, a_h, a_w
         inputs = wa_inputs(torch, count, 4, 2, 1, torch.float32, 610 + i)
         e4, e5 = check_window_attention(torch, wa, inputs, 1, 0.1)
@@ -954,18 +974,19 @@ def phase_launch_limits(torch, cf, wa, fa):
             count=count, coordatt_shape=[count, 2, 3, 33],
             window_shape=[count, 4, 2], flash_shape=[n, h, 3, 5, 8],
             **{f'{name}_err': e for name, e in zip(
-                KERNELS[:8], (e1, e2, e3, e4, e5, e6, e7, e8))}))
+                KERNELS, (e1, e2, e3, e4, e5, e6, e7, e8, e9))}))
         torch.cuda.empty_cache()
     emit('launch_limits', ok=True, checked=checked,
          axes='K1/K2b: N images (a 1-D grid of N * bands * channel tiles '
               'blocks: tiles of 32 f32 or 64 bf16 channels in vectors, 8 '
-              'on the scalar path that C = 33 takes), K2 (N * H); '
+              'on the scalar path that C = 33 takes), K2 (N * H); P: N '
+              'images (a 1-D grid of N * channel tiles * bands blocks); '
               'K3f/K3b: W windows (grid.y = ceil(W / windows a block) <= '
               '4096, K3b in at most 64 chunks); Lf/Ldkv/Ldq: N·heads (a 1-D '
               'grid of N·heads·row tiles)',
-         tolerance='as kernels, window_attention_kernels and '
-                   'flash_attention_kernels; every kernel\'s rerun '
-                   'bit-identical')
+         tolerance='as kernels, window_attention_kernels, '
+                   'flash_attention_kernels and coordatt_probe; every '
+                   'kernel\'s rerun bit-identical')
 
 
 def logit_measures(got, want):
@@ -1020,25 +1041,84 @@ def phase_tf32_check(torch, model, cpu_model_fn, tf32):
         raise AssertionError(f'tf32_check: {faults}')
 
 
-def phase_coordatt_probe(torch, kern):
-    """Kernel P against its plain version at the probe's four B=14 bf16
-    stages and at odd shapes (f32 and bf16; rtol 1e-5, atol 1e-4, as K1;
-    reruns bit-identical), then the probe itself
+def kernels_of_call(torch, fn):
+    """The names of the kernels (and memsets or copies) that one call of
+    fn runs on the card, from ``torch.profiler``, after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and
+            e.name != 'Command Buffer Full']
+
+
+def p_one_kernel(torch):
+    """One call of P runs exactly one kernel in ``torch.profiler``: each
+    way of adding its bands (one band, a cluster, the last band block) and
+    the scalar path, on small bf16 inputs; {shape and way: kernel names}.
+    ``main`` runs it before the model paths: after their long profiles,
+    one run of this script on the card had the profiler record no kernel
+    of a 13 µs call."""
+    from stc_unet_tpu_torch.ops import dual_pools as dp
+    one_kernel = {}
+    for shape, way in (((2, 32, 32, 1024), None), ((2, 256, 16, 128), None),
+                       ((2, 256, 16, 128), 'last'), ((1, 1025, 2, 64), None),
+                       ((3, 37, 53, 24), None)):
+        x = gates(torch, shape, torch.bfloat16, 590)[0]
+        names = kernels_of_call(torch, lambda: dp._dual_pools_kernel(x, way))
+        combine = dp.dual_plan(shape, 2, True, way)['combine']
+        one_kernel[f'{list(shape)} {combine}'] = names
+        if len(names) != 1 or 'dual_band' not in names[0]:
+            raise AssertionError(f'P {shape} {combine}: not one kernel a '
+                                 f'call: {names}')
+        del x
+    return one_kernel
+
+
+def phase_coordatt_probe(torch, kern, one_kernel):
+    """Kernel P against its plain version (rtol 1e-5, atol 1e-4, as K1;
+    reruns bit-identical), f32 and bf16: at the probe's four B=14 stages,
+    odd shapes, the edges of its tiling (``P_EDGES``) and, one element off
+    16-byte alignment, ``P_UNALIGNED``; where a shape has 2 to 8 bands,
+    with the bands added both in a cluster (the plan's way) and by the
+    last band block. First each vector build of P in the built library
+    must hold 128-bit loads (``cuobjdump -sass``); ``one_kernel`` is
+    ``p_one_kernel``'s record, which the line carries. Then the probe itself
     (``stc_unet_tpu_torch/tools/probe_coordatt.py``): P, K1 and two
-    ``torch.sum`` timed at those stages. Returns P's rows, its launches in
-    the probe and its max abs error."""
-    from stc_unet_tpu_torch.tools.probe_coordatt import STAGES as PROBE
-    from stc_unet_tpu_torch.tools.probe_coordatt import check_dual_pools, probe
-    err = 0.0
-    shapes = [((14, hw, hw, c), torch.bfloat16) for hw, c in PROBE]
-    shapes += [(s, dt) for s in ODD for dt in (torch.float32,
-                                               torch.bfloat16)]
-    for i, (shape, dtype) in enumerate(shapes):
-        err = max(err, check_dual_pools(gates(torch, shape, dtype,
-                                               500 + i)[0]))
+    ``torch.sum`` timed at the four stages. Returns P's rows, its launches
+    in the probe and its max abs error."""
+    from stc_unet_tpu_torch.ops import dual_pools as dp
+    from stc_unet_tpu_torch.tools import probe_coordatt as pc
+    built = pc.builds()
+    if not pc.vector_builds_load_128(built['sass_loads']):
+        raise AssertionError(f'P: not 12 builds, each vector build with '
+                             f'128-bit or bulk loads: {built["sass_loads"]}')
+    err, checked = 0.0, []
+    cases = [((14, hw, hw, c), False) for hw, c in pc.STAGES]
+    cases += [(s, False) for s in ODD + P_EDGES]
+    cases += [(s, True) for s in P_UNALIGNED]
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (shape, off) in enumerate(cases):
+            x = gates(torch, shape, dtype, 500 + i)[0]
+            if off:
+                x = unaligned(torch, x)
+            plan = dp.dual_plan(shape, x.element_size(),
+                                x.data_ptr() % 16 == 0)
+            ways = [None] + (['last'] if plan['combine'] == 'cluster'
+                             else [])
+            e = max(pc.check_dual_pools(x, way) for way in ways)
+            err = max(err, e)
+            checked.append(dict(shape=list(shape), dtype=str(dtype)[6:],
+                                unaligned=off, combine=plan['combine'],
+                                vec=plan['vec'], err=e))
+            del x
     torch.cuda.empty_cache()
     reset_counts(kern)
-    rec = probe(check=False)
+    rec = pc.probe(check=False)
     launches = read_counts(kern)
     if not launches['dual_pools'] or any(
             v for k, v in launches.items()
@@ -1053,6 +1133,7 @@ def phase_coordatt_probe(torch, kern):
                        shape=[st['batch'], st['hw'], st['hw'], st['c']]))
             for st in rec['stages']]
     emit('coordatt_probe', ok=True, launches=launches, max_abs_err=err,
+         checked=checked, one_kernel_a_call=one_kernel,
          tolerance='rtol 1e-5 atol 1e-4 against two f32 torch.sum; reruns '
                    'bit-identical', **rec)
     return rows, launches['dual_pools'], err
@@ -1718,6 +1799,8 @@ def main(argv=None):
                    **dict.fromkeys(FA_KERNELS, fa), dual_pools=dp)
     kern = {name: getattr(modules[name], name) for name in KERNELS}
 
+    p_kernels = p_one_kernel(torch)
+
     # 4. the STC-UNet path
     cfg_path = os.path.join(REPO, STC_CONFIG)
 
@@ -1814,7 +1897,7 @@ def main(argv=None):
 
     # 10. the CoordAtt probe: kernel P
     per['dual_pools'], launches['dual_pools'], err['dual_pools'] = \
-        phase_coordatt_probe(torch, kern)
+        phase_coordatt_probe(torch, kern, p_kernels)
 
     # the kernels of every path: the times of one forward's (K1, K2, K3f,
     # Lf) or one step's (K2b, K3b, Ldkv, Ldq) launches at the timed shapes;

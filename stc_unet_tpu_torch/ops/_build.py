@@ -34,6 +34,7 @@ PTR, INT, UINT, FLOAT, LONG = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                                ctypes.c_float, ctypes.c_longlong)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOGS: Dict[str, str] = {}     # nvcc's output of each build of this process
 
 
 def _nvcc() -> str:
@@ -60,11 +61,12 @@ def build_all(names=None) -> Dict[str, dict]:
     """Compile every named source (default: all of ``csrc/*.cu``) that has
     no library for its current hash. Returns, per name, ``path``,
     ``built`` (compiled by this call), ``seconds`` and ``log`` (nvcc's
-    output, with ptxas's register and spill counts)."""
+    output, with ptxas's register and spill counts, where this process
+    built it; else '')."""
     if names is None:
         names = sorted(p.stem for p in SRC_DIR.glob('*.cu'))
-    out = {n: dict(path=_target(n), built=False, seconds=0.0, log='')
-           for n in names}
+    out = {n: dict(path=_target(n), built=False, seconds=0.0,
+                   log=_LOGS.get(n, '')) for n in names}
     todo = [n for n in names if not out[n]['path'].exists()]
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -85,6 +87,7 @@ def build_all(names=None) -> Dict[str, dict]:
                 raise RuntimeError(f'nvcc failed on csrc/{n}.cu '
                                    f'(exit {proc.returncode}):\n{logs[n]}')
             os.replace(tmp, out[n]['path'])
+            _LOGS[n] = logs[n]
             out[n].update(built=True, seconds=time.perf_counter() - t0,
                           log=logs[n])
     return out

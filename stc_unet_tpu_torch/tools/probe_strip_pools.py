@@ -96,13 +96,14 @@ def kernel_name(mangled: str):
             f'{"dots" if m[3] == "1" else "pools"}>')
 
 
-def ptxas_usage(log: str) -> dict:
+def ptxas_usage(log: str, name_of=kernel_name) -> dict:
     """{'strip_band<bf16, 8, pools>': {'registers': r, 'spill_bytes': s},
-    ...} of each K1/K2b build, from nvcc's ``-Xptxas=-v`` log."""
+    ...} of each K1/K2b build (of each kernel ``name_of`` names), from
+    nvcc's ``-Xptxas=-v`` log."""
     out, fn = {}, None
     for line in log.splitlines():
         if 'Compiling entry function' in line:
-            fn = kernel_name(line)
+            fn = name_of(line)
         elif fn and 'spill stores' in line:
             out.setdefault(fn, {})['spill_bytes'] = int(
                 line.split('bytes spill stores')[0].split()[-1])
@@ -112,14 +113,14 @@ def ptxas_usage(log: str) -> dict:
     return out
 
 
-def vector_loads(sass: str) -> dict:
+def vector_loads(sass: str, name_of=kernel_name) -> dict:
     """{'strip_band<bf16, 8, pools>': {'LDG.E.128.CONSTANT': n, ...}, ...}:
-    the global-load and bulk-copy instructions of each K1/K2b build, from
-    ``cuobjdump -sass``."""
+    the global-load and bulk-copy instructions of each K1/K2b build (of
+    each kernel ``name_of`` names), from ``cuobjdump -sass``."""
     counts, fn = {}, None
     for line in sass.splitlines():
         if 'Function :' in line:
-            fn = kernel_name(line)
+            fn = name_of(line)
             if fn:
                 counts[fn] = {}
         elif fn:

@@ -329,23 +329,35 @@ def test_transformer_block_flash_matches_jax():
 
 # -- kernel P: the probe's single-pass dual strip pool ----------------------
 
-@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-def test_dual_pools_plain_version_matches_the_probe_kernel(dtype):
+# (shape, row block): the first case keeps its ids; the others have H not a
+# multiple of 8 and C = 13
+DUAL_POOL_CASES = [
+    pytest.param((2, 16, 8, 24), 4, dtype, id=dtype)
+    for dtype in ('float32', 'bfloat16')] + [
+    pytest.param(shape, bh, dtype, id=f'h{shape[1]}-c13-{dtype}')
+    for shape, bh in (((2, 15, 9, 13), 5), ((3, 20, 11, 13), 4))
+    for dtype in ('float32', 'bfloat16')]
+
+
+@pytest.mark.parametrize('shape,bh,dtype', DUAL_POOL_CASES)
+def test_dual_pools_plain_version_matches_the_probe_kernel(shape, bh, dtype):
     """dual_pools (its plain version on the CPU: two f32 sums) against the
-    probe's _pools_pallas in interpret mode; H in several row blocks."""
+    probe's _pools_pallas in interpret mode; H in several row blocks of bh
+    rows."""
     sys.path.insert(0, TOOLS)
     try:
         from probe_coordatt import _pools_pallas
     finally:
         sys.path.remove(TOOLS)
-    x = np.random.RandomState(5).rand(2, 16, 8, 24).astype(np.float32)
+    n, h, w, c = shape
+    x = np.random.RandomState(5).rand(*shape).astype(np.float32)
     jx = jnp.asarray(x, jnp.dtype(dtype))
     with pltpu.force_tpu_interpret_mode():
-        jh, jw = _pools_pallas(jx, 4)
+        jh, jw = _pools_pallas(jx, bh)
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
     sh, sw = tdp.dual_pools(tx)
     assert sh.dtype == sw.dtype == torch.float32
-    assert sh.shape == (2, 16, 24) and sw.shape == (2, 8, 24)
+    assert sh.shape == (n, h, c) and sw.shape == (n, w, c)
     np.testing.assert_allclose(sh.numpy(), np.asarray(jh), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(sw.numpy(), np.asarray(jw), rtol=1e-5,

@@ -20,11 +20,13 @@ attention, f32) sum in another order and with an online softmax: rtol
 1e-4 and atol 1e-5 of the largest value; their reruns are bit-identical,
 and do not change with
 ``torch.backends.cuda.matmul.allow_tf32``. P (the probe's dual strip
-pool) as K1. K1 and K2b are also held to theirs at the edges of their
-tiling (odd C, H past 8 bands, W of 1 and 2049, tensors one element off
-a 16-byte boundary). Every family but P is also held to its plain version at
-the 65535 that a grid's y or z holds and one past it (N images, W windows,
-N·heads), with bit-identical reruns.
+pool) as K1, also at W of 2049, H of 1025, N of 65536, off 16-byte
+alignment and with either way of adding its bands. K1 and K2b are also
+held to theirs at the edges of their tiling (odd C, H past 8 bands, W of 1
+and 2049, tensors one element off a 16-byte boundary). Every other family
+is also held to its plain version at the 65535 that a grid's y or z holds
+and one past it (N images, W windows, N·heads), with bit-identical
+reruns.
 """
 import math
 
@@ -440,8 +442,15 @@ def test_kernels_pass_the_old_grid_limit_on_card(cuda_device, family,
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape', [(14, 256, 256, 128), (14, 32, 32, 1024),
-                                   (3, 37, 53, 40), (1, 130, 71, 13)])
+                                   (3, 37, 53, 40), (1, 130, 71, 13),
+                                   (1, 70, 2049, 32), (1, 1025, 3, 64),
+                                   (65536, 2, 3, 13)])
 def test_dual_pools_matches_plain_version_on_card(cuda_device, shape, dtype):
+    """P against its plain version (rtol 1e-5, atol 1e-4), reruns
+    bit-identical: as planned, with x one element past a 16-byte boundary
+    (one element a lane), and where the shape has 2 to 8 bands with the
+    last band block adding them in place of the cluster. W of 2049, H of
+    1025 (17 bands) and N of 65536 (past the old grid limit) included."""
     g = torch.Generator(device=cuda_device).manual_seed(6)
     x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
     before = tdp.dual_pools.launches
@@ -452,3 +461,16 @@ def test_dual_pools_matches_plain_version_on_card(cuda_device, shape, dtype):
     torch.testing.assert_close(sh, eh, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(sw, ew, rtol=1e-5, atol=1e-4)
     assert torch.equal(sh, sh2) and torch.equal(sw, sw2)
+    off = torch.empty(x.numel() + 8, dtype=dtype, device=cuda_device)
+    off = off[1:1 + x.numel()].view(shape)
+    off.copy_(x)
+    assert off.data_ptr() % 16 != 0
+    runs = [(off, None)]
+    if tdp.dual_plan(shape, x.element_size(), True)['combine'] == 'cluster':
+        runs.append((x, 'last'))
+    for t, combine in runs:
+        got = tdp._dual_pools_kernel(t, combine)
+        again = tdp._dual_pools_kernel(t, combine)
+        for a, b, e in zip(got, again, (eh, ew)):
+            torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-4)
+            assert torch.equal(a, b)
