@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``stc_unet_tpu_torch``) on one card.
 
-Drives the port's four paths at full width, with random weights from seed
-0: STC-UNet (``my_config/STC-UNet.py``) and MaxViT-UNet
+Drives the port's four paths and its test path at full width, with random
+weights from seed 0: STC-UNet (``my_config/STC-UNet.py``) and MaxViT-UNet
 (``my_config/MaxViT-UNet.py``) inference through ``init_segmentor`` and
 ``model(return_loss=False, img=[...], img_metas=[...])``, STC-UNet in
 slide mode (crop 256, stride 170: the 9 tiles of each 512² image run as
@@ -36,7 +36,16 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
    TF32 defaults, which a caller of ``init_segmentor`` runs with, to the
    CPU's at 512², whole and slide, f32 (``tf32_check``: logit error
    within 1e-2 of the largest, class margin within 0.1 of its spread,
-   argmax >= 0.999);
+   argmax >= 0.999); then drives the test path (``test_path``): writes 64
+   pseudo-KiTS 512² pairs with the port's PNG writer (checking its round
+   trip and the C unfilter against the plain one), builds the config's
+   test dataset and loader, runs ``single_gpu_test(pre_eval=True)`` and
+   ``evaluate`` with the classes split by a shifted ``conv_seg`` bias,
+   holds the first 4 images to the port on the CPU (labels, areas, mDice
+   under a margin rule, with TF32 off and at torch's defaults), checks K1
+   and K2 4 times a forward, and times the split end to end beside the
+   model alone, ``inference_segmentor`` on a PNG path at bs 1, and PNG
+   decode, the pipeline, ``collate`` and ``pre_eval`` per image;
 5. times slide (B=14, 126 tiles), whole (B=8) and the bs-1 whole latency
    with CUDA events, with TF32 off, at torch's defaults and on, and breaks
    one slide forward of each down by kernel with torch.profiler; times each
@@ -215,6 +224,9 @@ GRID_YZ = 65535
 # limits set before its first run on the card
 TF32_LIMITS = dict(logit_err_over_max=1e-2, margin_err_over_spread=0.1,
                    argmax_agreement=0.999)
+# the test path: a split of pseudo-KiTS pairs written as PNG, evaluated on
+# the card; the first images also on the CPU
+TEST_PATH = dict(images=64, size=512, seed=0, cpu_images=4)
 # MaxViT's window attention at B=8, 512²: (windows W, tokens N, channels C,
 # calls per forward) per stage; 32 heads, 8x8 windows and grids; the /4,
 # /8 and /16 stages run in the encoder and the decoder
@@ -1041,6 +1053,299 @@ def phase_tf32_check(torch, model, cpu_model_fn, tf32):
         raise AssertionError(f'tf32_check: {faults}')
 
 
+def write_split(root, n, size, seed):
+    """``n`` pseudo-KiTS pairs of ``size``² in ``root``/test/{images,labels}
+    with the port's PNG writer (``tools/parity_eval.py:36-51``'s data: RGB
+    noise, a 0/1 disc label). Image rows cycle through the filters 0-4,
+    label rows too, written by 8 threads. Checks ``png.decode(png.encode(
+    x, f)) == x`` for each filter, on the first image and label, and that
+    the C unfilter gives the plain version's bytes on every file written.
+    Returns the record."""
+    import numpy as np
+    from stc_unet_tpu_torch.utils import png
+    from concurrent.futures import ThreadPoolExecutor
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    cycle = np.arange(size) % 5
+    jobs = []
+    for d in ('images', 'labels'):
+        os.makedirs(os.path.join(root, 'test', d))
+    for i in range(n):
+        img = rng.randint(0, 255, (size, size, 3), dtype=np.uint8)
+        cy, cx, r = rng.randint(size // 4, 3 * size // 4, 2).tolist() + \
+            [rng.randint(size // 8, size // 3)]
+        ann = (((yy - cy) ** 2 + (xx - cx) ** 2) < r * r).astype(np.uint8)
+        if i == 0:
+            for f in range(5):
+                for x in (img, ann):
+                    if not np.array_equal(png.decode(png.encode(x, f))[0], x):
+                        raise AssertionError(f'PNG round trip, filter {f}, '
+                                             f'{x.shape}')
+        jobs += [(os.path.join(root, 'test', d, f'case_{i:05d}.png'), x)
+                 for d, x in (('images', img), ('labels', ann))]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        for _ in pool.map(lambda job: png.write(*job, cycle), jobs):
+            pass
+    write_s = time.perf_counter() - t0
+    paths = [path for path, _ in jobs]
+    t0 = time.perf_counter()
+    for path in paths:
+        with open(path, 'rb') as f:
+            raw, height, width, color, _ = png.inflate(f.read(), path)
+        bpp = png.CHANNELS[color]
+        args = (raw, height, width * bpp, bpp)
+        if not np.array_equal(png.unfilter(*args),
+                              png.unfilter_reference(*args)):
+            raise AssertionError(f'{path}: the C unfilter differs from the '
+                                 f'plain one')
+    return dict(files=len(paths), size=size, filters='rows cycle 0-4',
+                round_trip='filters 0-4, RGB and gray: equal',
+                unfilter_c_vs_plain=f'{len(paths)} files equal',
+                write_s=write_s,
+                unfilter_check_s=time.perf_counter() - t0)
+
+
+def split_loader(cfg, root, stems=None):
+    """``build_dataset(cfg.data.test)`` on ``root`` in test mode (only the
+    files named by ``stems``, through a split file, if given), and its
+    loader: 4 a batch, 2 worker threads, in order."""
+    from stc_unet_tpu_torch.datasets import build_dataloader, build_dataset
+    test = cfg.data.test
+    test.data_root, test.test_mode = root, True
+    if stems is not None:
+        split = os.path.join(root, f'split_{len(stems)}.txt')
+        with open(split, 'w') as f:
+            f.write(''.join(f'{s}\n' for s in stems))
+        test.split = split
+    dataset = build_dataset(test)
+    return build_dataloader(dataset, samples_per_gpu=4, workers_per_gpu=2,
+                            dist=False, shuffle=False)
+
+
+def compare_eval(card_maps, card_pre, cpu_pre, cpu_logits, band):
+    """The card's label maps and pre_eval areas against the CPU's on the
+    same images. A pixel is excluded where the CPU's class margin (logit
+    1 - logit 0) lies within ``band`` of the margin's spread (std): there
+    either label is right. Faults: a disagreeing label off the excluded
+    pixels; an image's areas apart by more than its excluded pixels; mDice
+    (unrounded, from the areas) apart by more than the excluded pixels
+    over the labelled ones."""
+    import numpy as np
+    from stc_unet_tpu_torch.core import pre_eval_to_metrics
+    margin = (cpu_logits[..., 1] - cpu_logits[..., 0]).numpy()
+    spread = float(margin.std())
+    excluded = np.abs(margin) <= band * spread
+    cpu_maps = cpu_logits.argmax(-1).numpy()
+    disagree = np.stack(card_maps) != cpu_maps
+    faults = []
+    if (disagree & ~excluded).any():
+        faults.append(f'{int((disagree & ~excluded).sum())} labels differ '
+                      f'off the excluded pixels')
+    area_diff = [int(np.abs(np.stack(a).astype(np.int64) -
+                            np.stack(b)).max())
+                 for a, b in zip(card_pre, cpu_pre)]
+    per_image = excluded.reshape(len(card_maps), -1).sum(1).tolist()
+    for i, (d, k) in enumerate(zip(area_diff, per_image)):
+        if d > k:
+            faults.append(f'image {i}: areas apart by {d} > {k} excluded')
+    dice = [float(np.nanmean(pre_eval_to_metrics(p, ['mDice'])['Dice']))
+            for p in (card_pre, cpu_pre)]
+    labelled = int(sum(np.asarray(a[3]).sum() for a in cpu_pre))
+    limit = int(excluded.sum()) / labelled
+    if abs(dice[0] - dice[1]) > limit:
+        faults.append(f'mDice {dice[0]} vs {dice[1]}: apart by more than '
+                      f'{limit}')
+    return dict(band_over_spread=band, margin_std=spread,
+                excluded_pixels=int(excluded.sum()),
+                disagreeing_pixels=int(disagree.sum()),
+                disagreeing_off_band=int((disagree & ~excluded).sum()),
+                area_max_diff=area_diff, excluded_per_image=per_image,
+                mdice_card=dice[0], mdice_cpu=dice[1],
+                mdice_limit=limit), faults
+
+
+def phase_test_path(torch, kern, model, cpu_model_fn, tf32):
+    """The port's test path on a written split (``TEST_PATH``): 64
+    pseudo-KiTS 512² pairs as PNG, ``build_dataset(cfg.data.test)`` and
+    ``build_dataloader`` (4 a batch, 2 threads), ``single_gpu_test(
+    pre_eval=True)`` and ``evaluate`` with the seed-0 STC-UNet, whose
+    ``conv_seg`` bias is shifted first so that the classes split the first
+    batch's pixels (restored after). Held to the port on the CPU over the
+    first 4 images (``compare_eval``) with TF32 off, excluding pixels
+    within 1e-3 of the margin's spread (``compare_logits``' margin limit),
+    and at the TF32 setting ``tf32`` (label, cudnn, matmul), torch's
+    defaults, excluding those within ``TF32_LIMITS``' 0.1 of it (at these
+    flags the margins move by up to 1.4e-2 of their spread in
+    ``tf32_check``'s record). Each class must take at least 10 % of the
+    predicted pixels over the split. K1 and K2 must launch 4 times a
+    forward. Timed at ``tf32``: ``single_gpu_test`` slices/s over the
+    split beside the model alone (``whole_inference``) on the same
+    batches, the host's share, ``inference_segmentor`` on a PNG path at
+    bs 1 beside the model alone on that image, PNG decode, the pipeline,
+    ``collate`` and ``pre_eval`` per image. Returns the launches."""
+    import tempfile
+    import numpy as np
+    from stc_unet_tpu_torch.apis import inference_segmentor, single_gpu_test
+    from stc_unet_tpu_torch.datasets import collate
+    from stc_unet_tpu_torch.utils import Config, png
+    start = time.perf_counter()
+    label, cudnn, matmul = tf32
+    n, size = TEST_PATH['images'], TEST_PATH['size']
+    launches = dict.fromkeys(KERNELS, 0)
+    want = per_call(STC_FORWARD)
+
+    def counted(fn, forwards):
+        reset_counts(kern)
+        out = fn()
+        counts = read_counts(kern)
+        if counts != {k: forwards * v for k, v in want.items()}:
+            raise AssertionError(f'test_path: {forwards} forwards launched '
+                                 f'{counts}')
+        for k in launches:
+            launches[k] += counts[k]
+        return out
+
+    work = os.path.join(REPO, 'work_dirs')
+    os.makedirs(work, exist_ok=True)
+    bias = model.decode_head.conv_seg.bias
+    saved = bias.detach().clone()
+    model.test_cfg = dict(mode='whole')
+    try:
+        with tempfile.TemporaryDirectory(dir=work) as root:
+            t0 = time.perf_counter()
+            codec = write_split(root, n, size, TEST_PATH['seed'])
+            codec['seconds'] = time.perf_counter() - t0
+            cfg = Config.fromfile(os.path.join(REPO, STC_CONFIG))
+            loader = split_loader(cfg, root)
+            dataset = loader.dataset
+            first = [os.path.splitext(dataset.img_infos[i]['filename'])[0]
+                     for i in range(TEST_PATH['cpu_images'])]
+            loader4 = split_loader(Config.fromfile(
+                os.path.join(REPO, STC_CONFIG)), root, first)
+            batch = next(iter(loader4))
+            img4 = torch.from_numpy(batch['img'][0])
+            metas4 = batch['img_metas'][0]
+            # the classes split the first batch's pixels
+            set_tf32(torch, False, False)
+            logits = model.whole_inference(img4.cuda(), metas4, True)
+            shift = float((logits[..., 1] - logits[..., 0]).median())
+            with torch.no_grad():
+                bias[1] -= shift
+            # the CPU's run; its logits are kept from the same forward
+            t0 = time.perf_counter()
+            cpu = cpu_model_fn()
+            cpu.test_cfg = dict(mode='whole')
+            kept, logits_of = [], cpu._logits
+            cpu._logits = lambda x: kept.append(logits_of(x)) or kept[-1]
+            cpu_pre = single_gpu_test(cpu, loader4, pre_eval=True)
+            cpu_logits = torch.cat(kept)
+            del cpu
+            cpu_s = time.perf_counter() - t0
+            checks, faults = {}, []
+            for name, flags, band in (
+                    ('off', (False, False), 1e-3),
+                    (label, (cudnn, matmul),
+                     TF32_LIMITS['margin_err_over_spread'])):
+                set_tf32(torch, *flags)
+                pre = counted(lambda: single_gpu_test(model, loader4,
+                                                      pre_eval=True), 1)
+                maps = counted(lambda: single_gpu_test(model, loader4), 1)
+                checks[name], f = compare_eval(maps, pre, cpu_pre,
+                                               cpu_logits, band)
+                faults += [f'TF32 {name}: {x}' for x in f]
+            # the split at the TF32 setting the caller gets, timed
+            set_tf32(torch, cudnn, matmul)
+            batches = len(loader)
+            t0 = time.perf_counter()
+            results = counted(lambda: single_gpu_test(model, loader,
+                                                      pre_eval=True), batches)
+            e2e_s = time.perf_counter() - t0
+            metric = dataset.evaluate(results, metric=['mIoU', 'mDice',
+                                                       'mFscore'],
+                                      logger='silent')
+            pred = np.sum([np.asarray(r[2]) for r in results], axis=0)
+            shares = (pred / pred.sum()).tolist()
+            if min(shares) < 0.1:
+                faults.append(f'class shares of the predictions {shares}: '
+                              f'one under 10 %')
+            imgs = [torch.from_numpy(b['img'][0]).cuda() for b in loader]
+            model_ms = statistics.median(
+                event_ms(torch, lambda: model.whole_inference(x, None, False),
+                         iters=3) for x in imgs)
+            model_s = model_ms * batches / 1e3
+            # bs 1: inference_segmentor on a path, and the model alone on
+            # the same image
+            path = os.path.join(root, 'test', 'images', 'case_00000.png')
+            lat, alone = [], []
+            one = imgs[0][:1]
+            for i in range(22):
+                t0 = time.perf_counter()
+                counted(lambda: inference_segmentor(model, path), 1)
+                t1 = time.perf_counter()
+                model.whole_inference(one, None, False)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    lat.append((t1 - t0) * 1e3)
+                    alone.append((time.perf_counter() - t1) * 1e3)
+            # the host's steps per image
+            files = [os.path.join(root, 'test', 'images', i['filename'])
+                     for i in dataset.img_infos]
+            decode_ms = _median_ms(png.read_color, files)
+            blobs = []
+            for path in files:
+                with open(path, 'rb') as f:
+                    blobs.append(f.read())
+            inflate_ms = _median_ms(png.inflate, blobs)
+            rows = [png.inflate(b) for b in blobs]    # RGB: 3 bytes a pixel
+            unfilter_ms = _median_ms(
+                lambda r: png.unfilter(r[0], r[1], 3 * r[2], 3), rows)
+            pipeline_ms = _median_ms(dataset.__getitem__, range(n))
+            samples = [dataset[i] for i in range(4)]
+            collate_ms = _median_ms(lambda _: collate(samples),
+                                    range(10)) / 4
+            maps = [cpu_logits[i].argmax(-1).numpy() for i in range(4)]
+            pre_eval_ms = _median_ms(lambda i: dataset.pre_eval(maps[i], i),
+                                     range(4))
+    finally:
+        with torch.no_grad():
+            bias.copy_(saved)
+        set_tf32(torch, False, False)
+    emit('test_path', ok=not faults, faults=faults, config=STC_CONFIG,
+         split=dict(images=n, **codec), bias_shift=-shift,
+         tf32=label, cudnn_allow_tf32=cudnn, matmul_allow_tf32=matmul,
+         card_vs_cpu=dict(images=TEST_PATH['cpu_images'], cpu_s=cpu_s,
+                          **checks),
+         metrics={k: float(v) for k, v in metric.items()},
+         pred_class_shares=shares,
+         e2e_s=e2e_s, e2e_slices_per_s=n / e2e_s,
+         model_only_ms_b4=model_ms, model_only_slices_per_s=4e3 / model_ms,
+         host_share=(e2e_s - model_s) / e2e_s,
+         inference_segmentor_p50_ms=statistics.median(lat),
+         model_only_p50_ms_bs1=statistics.median(alone),
+         decode_ms=decode_ms, inflate_ms=inflate_ms, unfilter_ms=unfilter_ms,
+         pipeline_ms=pipeline_ms,
+         collate_ms_per_image=collate_ms, pre_eval_ms=pre_eval_ms,
+         launches={k: v for k, v in launches.items() if v},
+         phase_s=time.perf_counter() - start,
+         timer='single_gpu_test: host clock over the split (one call, after '
+               'the comparison runs); model alone: CUDA events, median of 3 '
+               'a batch, median over the batches; p50 on the host clock, 20 '
+               'calls after 2; host steps: median over the files or calls')
+    if faults:
+        raise AssertionError(f'test_path: {faults}')
+    return launches
+
+
+def _median_ms(fn, items):
+    times = []
+    for item in items:
+        t0 = time.perf_counter()
+        fn(item)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def kernels_of_call(torch, fn):
     """The names of the kernels (and memsets or copies) that one call of
     fn runs on the card, from ``torch.profiler``, after a warm-up call."""
@@ -1823,6 +2128,11 @@ def main(argv=None):
                            STC_CONFIG, ('slide', 'whole'), STC_FORWARD)
     phase_tf32_check(torch, model, cpu_model(stc_cfg, model),
                      ('torch default',) + default_tf32)
+    evaluated = phase_test_path(torch, kern, model,
+                                cpu_model(stc_cfg, model),
+                                ('torch default',) + default_tf32)
+    for name in KERNELS:
+        launches[name] += evaluated[name]
 
     # 5. timing
     stc_rows = phase_timing(torch, model, [('off', False, False),

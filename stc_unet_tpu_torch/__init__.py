@@ -8,6 +8,10 @@ tensors like the JAX ones. The Pallas kernels of the JAX package become
 CUDA kernels written by hand for Hopper (``csrc/``), built with ``nvcc``
 at first use.
 
-This slice covers STC-UNet inference (whole and slide) in eval mode.
+It covers STC-UNet and MaxViT-UNet inference (whole and slide) and
+their train step; the test path: the PNG test pipeline (the port reads and
+writes PNG and msgpack itself: the card's machine has neither cv2, Pillow
+nor msgpack), ``inference_segmentor``, ``single_gpu_test`` and the metrics;
+and weights from a JAX ``.ckpt`` or a fork ``.pth``.
 """
 __version__ = '0.1.0'

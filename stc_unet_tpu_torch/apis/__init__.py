@@ -1,3 +1,4 @@
-from .inference import init_segmentor
+from .inference import inference_segmentor, init_segmentor
+from .test import single_gpu_test
 
-__all__ = ['init_segmentor']
+__all__ = ['inference_segmentor', 'init_segmentor', 'single_gpu_test']

@@ -10,14 +10,22 @@ a wrapper its library with the C signature of each entry point set, and
 ``stream_ptr``/``check_launch`` are the two sides of every launch;
 ``device_type`` picks a wrapper's side.
 
-There is no fallback: a missing ``nvcc`` or a failed build raises.
+``load_host_library`` does the same for a host helper ``csrc/<name>.c``
+(the PNG unfilter): the system C compiler ``cc`` builds it with
+``-O2 -shared -fPIC`` into the same directory, named by a hash of its
+source and flags.
+
+There is no fallback: a missing ``nvcc`` or ``cc``, or a failed build,
+raises.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
@@ -28,6 +36,8 @@ BUILD_DIR = PKG_DIR.parent / 'build' / 'stc_unet_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
+CC_FLAGS = ('-O2', '-shared', '-fPIC')
+
 # ctypes argument types of the entry points: pointers (tensors and the
 # stream), int, unsigned int, float and 64-bit int (strides)
 PTR, INT, UINT, FLOAT, LONG = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
@@ -35,6 +45,7 @@ PTR, INT, UINT, FLOAT, LONG = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOGS: Dict[str, str] = {}     # nvcc's output of each build of this process
+_HOST_LOCK = threading.Lock()  # data-loader threads may ask at once
 
 
 def _nvcc() -> str:
@@ -98,6 +109,34 @@ def load_library(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(str(build_all([name])[name]['path']))
     return _LIBS[name]
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The loaded library of the host helper ``csrc/<name>.c``, built
+    first with ``cc`` if no library has its current hash."""
+    with _HOST_LOCK:
+        if name in _LIBS:
+            return _LIBS[name]
+        src = SRC_DIR / f'{name}.c'
+        h = hashlib.sha256(' '.join(CC_FLAGS).encode())
+        h.update(src.read_bytes())
+        path = BUILD_DIR / f'lib{name}_{h.hexdigest()[:16]}.so'
+        if not path.exists():
+            cc = shutil.which('cc')
+            if cc is None:
+                raise RuntimeError(f'no C compiler (cc) to build csrc/'
+                                   f'{name}.c')
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_name(f'{path.name}.{os.getpid()}.tmp')
+            proc = subprocess.run([cc, *CC_FLAGS, '-o', str(tmp), str(src)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f'cc failed on csrc/{name}.c (exit '
+                                   f'{proc.returncode}):\n{proc.stdout}')
+            os.replace(tmp, path)
+        _LIBS[name] = ctypes.CDLL(str(path))
+        return _LIBS[name]
 
 
 def load_kernels(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:

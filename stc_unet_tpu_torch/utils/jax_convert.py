@@ -112,13 +112,20 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def _float32(value) -> np.ndarray:
+    if torch.is_tensor(value):     # a bfloat16 leaf of a .ckpt
+        return value.float().numpy()
+    return np.array(value, np.float32)
+
+
 def jax_to_torch_state(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax ``{'params', 'batch_stats'}`` (numpy leaves) → state_dict."""
+    """flax ``{'params', 'batch_stats'}`` (numpy leaves, or torch tensors
+    for bfloat16) → state_dict, in float32."""
     sd: Dict[str, torch.Tensor] = {}
     for collection in ('params', 'batch_stats'):
         for path, value in _leaves(variables.get(collection, {})):
             key, tag = translate_path(path, collection)
-            v = _transform(np.array(value, np.float32), tag)
+            v = _transform(_float32(value), tag)
             sd[key] = torch.from_numpy(np.ascontiguousarray(v))
             if key.endswith('.running_mean'):
                 sd[key[:-len('running_mean')] + 'num_batches_tracked'] = \
