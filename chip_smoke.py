@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``stc_unet_tpu_torch``) on one card.
 
-Drives the port's four paths and its test path at full width, with random
-weights from seed 0: STC-UNet (``my_config/STC-UNet.py``) and MaxViT-UNet
+Drives the port's four paths, its test path and its training path at
+full width, with random weights from seed 0: STC-UNet
+(``my_config/STC-UNet.py``) and MaxViT-UNet
 (``my_config/MaxViT-UNet.py``) inference through ``init_segmentor`` and
 ``model(return_loss=False, img=[...], img_metas=[...])``, STC-UNet in
 slide mode (crop 256, stride 170: the 9 tiles of each 512² image run as
@@ -107,7 +108,16 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
     with bit-identical reruns and 128-bit loads in each vector build, and
     one kernel a call in ``torch.profiler`` (checked on small inputs right
     after ``launch_limits``); then timed beside K1 and two ``torch.sum``
-    (``coordatt_probe``).
+    (``coordatt_probe``);
+11. trains through the port's entry point (``train_path``, after
+    ``test_path``): ``stc_unet_tpu_torch.tools.train.main`` on 32 train
+    and 8 test pseudo-KiTS 512² PNG pairs with the config's own pipeline,
+    batch 4, 2 loader threads, f32 at torch's TF32 defaults, Adam and
+    poly lr, 2 epochs with mDice and a checkpoint after each; holds the
+    first batch to its CPU rebuild (bit for bit), the first step's losses
+    on its 128² crop to the CPU (TF32 off), ``latest.pth``'s logits and
+    mDice to the trained model's and the EvalHook's, checks K1, K2 and
+    K2b's launches, and times the epochs beside the step alone.
 
     python3 chip_smoke.py
 
@@ -227,6 +237,11 @@ TF32_LIMITS = dict(logit_err_over_max=1e-2, margin_err_over_spread=0.1,
 # the test path: a split of pseudo-KiTS pairs written as PNG, evaluated on
 # the card; the first images also on the CPU
 TEST_PATH = dict(images=64, size=512, seed=0, cpu_images=4)
+# the train path: the train CLI on pseudo-KiTS splits written as PNG, with
+# the config's pipeline, batch 4, 2 loader threads, Adam and poly lr, for 2
+# epochs, validating and checkpointing after each; its first step is held
+# to the CPU on the first batch's top-left 128² (full width on the CPU)
+TRAIN_PATH = dict(train=32, test=8, size=512, seed=1, epochs=2, crop=128)
 # MaxViT's window attention at B=8, 512²: (windows W, tokens N, channels C,
 # calls per forward) per stage; 32 heads, 8x8 windows and grids; the /4,
 # /8 and /16 stages run in the encoder and the decoder
@@ -1053,8 +1068,8 @@ def phase_tf32_check(torch, model, cpu_model_fn, tf32):
         raise AssertionError(f'tf32_check: {faults}')
 
 
-def write_split(root, n, size, seed):
-    """``n`` pseudo-KiTS pairs of ``size``² in ``root``/test/{images,labels}
+def write_split(root, n, size, seed, split='test'):
+    """``n`` pseudo-KiTS pairs of ``size``² in ``root``/``split``/{images,labels}
     with the port's PNG writer (``tools/parity_eval.py:36-51``'s data: RGB
     noise, a 0/1 disc label). Image rows cycle through the filters 0-4,
     label rows too, written by 8 threads. Checks ``png.decode(png.encode(
@@ -1069,7 +1084,7 @@ def write_split(root, n, size, seed):
     cycle = np.arange(size) % 5
     jobs = []
     for d in ('images', 'labels'):
-        os.makedirs(os.path.join(root, 'test', d))
+        os.makedirs(os.path.join(root, split, d))
     for i in range(n):
         img = rng.randint(0, 255, (size, size, 3), dtype=np.uint8)
         cy, cx, r = rng.randint(size // 4, 3 * size // 4, 2).tolist() + \
@@ -1081,7 +1096,7 @@ def write_split(root, n, size, seed):
                     if not np.array_equal(png.decode(png.encode(x, f))[0], x):
                         raise AssertionError(f'PNG round trip, filter {f}, '
                                              f'{x.shape}')
-        jobs += [(os.path.join(root, 'test', d, f'case_{i:05d}.png'), x)
+        jobs += [(os.path.join(root, split, d, f'case_{i:05d}.png'), x)
                  for d, x in (('images', img), ('labels', ann))]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(8) as pool:
@@ -1335,6 +1350,250 @@ def phase_test_path(torch, kern, model, cpu_model_fn, tf32):
     if faults:
         raise AssertionError(f'test_path: {faults}')
     return launches
+
+
+def phase_train_path(torch, kern, tf32):
+    """The port's training path through its entry point: writes a
+    pseudo-KiTS split (``TRAIN_PATH``: 32 train and 8 test 512² PNG
+    pairs) and runs ``stc_unet_tpu_torch.tools.train.main`` on full-width
+    ``my_config/STC-UNet.py`` with the config's own pipeline, batch 4, 2
+    loader threads, f32 at the TF32 setting ``tf32`` (torch's defaults),
+    Adam and poly lr, 2 epochs, validating (mDice) and checkpointing
+    after each. A hook of this script records each step's batch, log
+    values and data_time, the weights before the first step, the epochs'
+    times (the card synced at each end) and the EvalHook's mDice.
+    Faults: the first batch is not bit-equal to a CPU rebuild of it from
+    the same seed; the first step's losses on that batch's top-left
+    ``crop``² (TF32 off, dropout off, from the recorded weights) on the
+    card and on the port on the CPU differ past ``train_check``'s bands;
+    a loss is not finite; ``latest.pth`` in a fresh model gives other
+    logits than the trained model (beyond 1e-5 of the largest); a
+    separate ``single_gpu_test`` of ``latest.pth`` gives another mDice
+    than the EvalHook's last; K1, K2 and K2b do not launch 4 times a step
+    and K1 and K2 4 times a validation forward. Then the step alone is
+    timed on the same batches (CUDA events). Returns the launches."""
+    import logging
+    import tempfile
+    import numpy as np
+    from stc_unet_tpu_torch.apis import init_segmentor, single_gpu_test
+    from stc_unet_tpu_torch.core import build_lr_schedule, build_optimizer
+    from stc_unet_tpu_torch.datasets import build_dataloader, build_dataset
+    from stc_unet_tpu_torch.engine import HOOKS, Hook, make_train_step
+    from stc_unet_tpu_torch.tools import train as train_cli
+    from stc_unet_tpu_torch.utils import Config
+    from stc_unet_tpu_torch.utils.logger import get_root_logger
+    start = time.perf_counter()
+    label, cudnn, matmul = tf32
+    n_train, n_test = TRAIN_PATH['train'], TRAIN_PATH['test']
+    epochs, crop = TRAIN_PATH['epochs'], TRAIN_PATH['crop']
+
+    class TrainPathRecord(Hook):
+        def __init__(self):
+            self.batches, self.logs, self.data_time = [], [], []
+            self.epoch_s, self.mdice, self.initial = [], [], None
+
+        def before_train_epoch(self, runner):
+            if 'mDice' in runner.log_buffer.output:
+                self.mdice.append(runner.log_buffer.output['mDice'])
+            torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+
+        def before_train_iter(self, runner):
+            if self.initial is None:
+                self.initial = {k: v.detach().cpu().clone() for k, v in
+                                runner.model.state_dict().items()}
+
+        def after_train_iter(self, runner):
+            b = runner.data_batch
+            self.batches.append((b['img'], b['gt_semantic_seg']))
+            self.logs.append(runner.outputs['log_vars'])
+            self.data_time.append(
+                runner.log_buffer.val_history['data_time'][-1])
+
+        def after_train_epoch(self, runner):
+            torch.cuda.synchronize()
+            self.epoch_s.append(time.perf_counter() - self.t0)
+
+        def after_run(self, runner):
+            self.mdice.append(runner.log_buffer.output.get('mDice'))
+
+    record = TrainPathRecord()
+    HOOKS.register_module(module=lambda: record, name='TrainPathRecord',
+                          force=True)
+    cfg_path = os.path.join(REPO, STC_CONFIG)
+    work = os.path.join(REPO, 'work_dirs')
+    os.makedirs(work, exist_ok=True)
+    logger = get_root_logger()    # its console handler, made once
+    handlers = list(logger.handlers)
+    streams = [h for h in handlers if type(h) is logging.StreamHandler]
+    faults = []
+    try:
+        with tempfile.TemporaryDirectory(dir=work) as root:
+            t0 = time.perf_counter()
+            write_split(root, n_train, TRAIN_PATH['size'], TRAIN_PATH['seed'],
+                        split='train')
+            write_split(root, n_test, TRAIN_PATH['size'],
+                        TRAIN_PATH['seed'] + 1)
+            write_s = time.perf_counter() - t0
+            wd = os.path.join(root, 'work')
+            argv = [cfg_path, '--work-dir', wd, '--seed', '0',
+                    '--cfg-options', f'data.train.data_root={root}',
+                    f'data.val.data_root={root}',
+                    f'runner.max_epochs={epochs}',
+                    'checkpoint_config.interval=1',
+                    "custom_hooks=[{'type': 'TrainPathRecord', "
+                    "'priority': 'HIGHEST'}]"]
+            set_tf32(torch, cudnn, matmul)
+            for h in streams:         # the run's INFO lines go to its log
+                h.setLevel(logging.WARNING)
+            reset_counts(kern)
+            t0 = time.perf_counter()
+            runner = train_cli.main(argv)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts = read_counts(kern)
+            for h in streams:
+                h.setLevel(logging.INFO)
+            steps = len(record.batches)
+            forwards = epochs * n_test
+            want = per_call(dict(
+                strip_pools=4 * (steps + forwards),
+                gate_add=4 * (steps + forwards), gate_dots=4 * steps))
+            if counts != want or steps != epochs * n_train // 4:
+                faults.append(f'{steps} steps and {forwards} validation '
+                              f'forwards launched {counts}, want {want}')
+            losses = {k: torch.stack([lv[k] for lv in record.logs]).cpu()
+                      for k in record.logs[0]}
+            if not all(bool(torch.isfinite(v).all())
+                       for v in losses.values()):
+                faults.append(f'a loss is not finite: {losses}')
+            cfg = Config.fromfile(os.path.join(wd, 'STC-UNet.py'))
+            # the first batch, rebuilt on the CPU from the same seed
+            loader = build_dataloader(build_dataset(cfg.data.train), 4, 0,
+                                      seed=0)
+            loader.set_epoch(0)
+            cpu_batch = next(iter(loader))
+            pipeline_ms = _median_ms(
+                lambda i: loader.dataset.load(i, np.random.RandomState(i)),
+                range(8))
+            img0, gt0 = (t.cpu() for t in record.batches[0])
+            batch_equal = bool(
+                torch.equal(img0, torch.from_numpy(cpu_batch['img'])) and
+                torch.equal(gt0, torch.from_numpy(
+                    cpu_batch['gt_semantic_seg'])))
+            if not batch_equal:
+                faults.append('the first batch differs from its CPU '
+                              'rebuild')
+            # the first step on the first batch's crop, card vs CPU
+            set_tf32(torch, False, False)
+            check_cfg = Config.fromfile(os.path.join(wd, 'STC-UNet.py'))
+            check_cfg.model.decode_head.dropout_ratio = 0.0
+            first = {}
+            t0 = time.perf_counter()
+            for where in ('cuda', 'cpu'):
+                m = init_segmentor(check_cfg, device=where)
+                m.load_state_dict(record.initial)
+                step = make_train_step(m, build_optimizer(m, cfg.optimizer))
+                lv = step(img0[:, :crop, :crop].to(where),
+                          gt0[:, :crop, :crop].to(where))
+                first[where] = {k: v.item() for k, v in lv.items()}
+                del m, step
+            cpu_step_s = time.perf_counter() - t0
+            pixel = 100.0 / int((gt0[:, :crop, :crop] != 255).sum())
+            for k, b in first['cpu'].items():
+                a = first['cuda'][k]
+                limit = 1e-5 * abs(b) + 1e-6 if 'loss' in k else 3 * pixel
+                if not math.isfinite(a) or abs(a - b) > limit:
+                    faults.append(f'first step {k}: card {a} cpu {b}')
+            set_tf32(torch, cudnn, matmul)
+            # latest.pth in a fresh model; its mDice on its own
+            latest = os.path.join(wd, 'latest.pth')
+            fresh = init_segmentor(cfg, latest)
+            val_cfg = cfg.data.val
+            val_cfg.test_mode = True
+            val_loader = build_dataloader(build_dataset(val_cfg), 1, 2,
+                                          shuffle=False)
+            img = torch.from_numpy(next(iter(val_loader))['img'][0]).cuda()
+            runner.model.eval()
+            with torch.no_grad():
+                want_logits = runner.model.whole_inference(img, None, False)
+                got_logits = fresh.whole_inference(img, None, False)
+            logit_err = (got_logits - want_logits).abs().max().item()
+            logit_max = want_logits.abs().max().item()
+            if logit_err > 1e-5 * logit_max:
+                faults.append(f'latest.pth logits off by {logit_err} '
+                              f'(largest {logit_max})')
+            separate = val_loader.dataset.evaluate(
+                single_gpu_test(fresh, val_loader, pre_eval=True),
+                metric=cfg.evaluation['metric'], logger='silent')['mDice']
+            if len(record.mdice) != epochs or separate != record.mdice[-1]:
+                faults.append(f'EvalHook mDice {record.mdice} vs '
+                              f'single_gpu_test of latest.pth {separate}')
+            ckpts = sorted(f for f in os.listdir(wd) if f.endswith('.pth'))
+            del fresh
+            # the step alone on the run's batches
+            gen = torch.Generator(device='cuda').manual_seed(0)
+            step = runner._train_step
+            for img_b, gt_b in record.batches[:2]:
+                step(img_b, gt_b, gen)
+            t_start = torch.cuda.Event(enable_timing=True)
+            t_end = torch.cuda.Event(enable_timing=True)
+            t_start.record()
+            for img_b, gt_b in record.batches:
+                step(img_b, gt_b, gen)
+            t_end.record()
+            t_end.synchronize()
+            step_s = t_start.elapsed_time(t_end) / 1e3
+    finally:
+        for h in streams:
+            h.setLevel(logging.INFO)
+        for h in logger.handlers[:]:     # the run's log file
+            if h not in handlers:
+                logger.removeHandler(h)
+                h.close()
+        set_tf32(torch, False, False)
+    images = 4 * steps
+    train_s = sum(record.epoch_s)
+    emit('train_path', ok=not faults, faults=faults, config=STC_CONFIG,
+         entry='python -m stc_unet_tpu_torch.tools.train (main(argv) in '
+               'process)', argv=argv[1:],
+         split=dict(train=n_train, test=n_test, size=TRAIN_PATH['size'],
+                    write_s=write_s),
+         batch=4, workers_per_gpu=2, epochs=epochs, steps=steps,
+         dtype='float32', tf32=label, cudnn_allow_tf32=cudnn,
+         matmul_allow_tf32=matmul, run_s=run_s,
+         epoch_train_s=record.epoch_s,
+         e2e_train_img_per_s=images / train_s,
+         epoch_img_per_s=[4 * steps / epochs / s for s in record.epoch_s],
+         step_alone_s=step_s, step_alone_img_per_s=images / step_s,
+         step_alone_ms=1e3 * step_s / steps,
+         host_share=(train_s - step_s) / train_s,
+         pipeline_ms_per_image=pipeline_ms,
+         data_time_mean_s=statistics.mean(record.data_time),
+         data_time_after_first_mean_s=statistics.mean(
+             t for i, t in enumerate(record.data_time)
+             if i % (steps // epochs)),
+         losses={k: v.tolist() for k, v in losses.items()},
+         first_batch_bit_equal_cpu=batch_equal,
+         first_step=dict(crop=crop, batch=4, tf32=False, dropout_ratio=0.0,
+                         card=first['cuda'], cpu=first['cpu'],
+                         seconds=cpu_step_s),
+         latest_logits_max_abs_err=logit_err, latest_logits_max=logit_max,
+         mdice_eval_hook=record.mdice, mdice_latest_single_gpu_test=separate,
+         checkpoints=ckpts,
+         launches={k: v for k, v in counts.items() if v},
+         phase_s=time.perf_counter() - start,
+         timer='epochs: host clock from before_train_epoch to '
+               'after_train_epoch, the card synced at both (data loading '
+               'included, validation and checkpointing not); step alone: '
+               'one CUDA event pair over the run\'s batches after 2 '
+               'warm-up steps; data_time: IterTimerHook; pipeline: '
+               'median of 8 samples, one thread')
+    if faults:
+        raise AssertionError(f'train_path: {faults}')
+    del runner, record
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _median_ms(fn, items):
@@ -2133,6 +2392,10 @@ def main(argv=None):
                                 ('torch default',) + default_tf32)
     for name in KERNELS:
         launches[name] += evaluated[name]
+    trained_path = phase_train_path(torch, kern,
+                                    ('torch default',) + default_tf32)
+    for name in KERNELS:
+        launches[name] += trained_path[name]
 
     # 5. timing
     stc_rows = phase_timing(torch, model, [('off', False, False),

@@ -1,9 +1,10 @@
 from .builder import (DATASETS, PIPELINES, DataLoader, EpochSampler,
-                      build_dataloader, build_dataset, collate)
+                      build_dataloader, build_dataset, collate, sample_seed)
 from .custom import CustomDataset
 from .my_dataset import MyDataset
 from . import pipelines  # noqa: F401  (registers the transforms)
+from .samplers import DistributedSampler
 
-__all__ = ['DATASETS', 'PIPELINES', 'DataLoader', 'EpochSampler',
-           'build_dataloader', 'build_dataset', 'collate', 'CustomDataset',
-           'MyDataset']
+__all__ = ['DATASETS', 'PIPELINES', 'DataLoader', 'DistributedSampler',
+           'EpochSampler', 'build_dataloader', 'build_dataset', 'collate',
+           'sample_seed', 'CustomDataset', 'MyDataset']

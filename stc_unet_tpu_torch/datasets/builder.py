@@ -1,11 +1,21 @@
 """Dataset and pipeline registries, ``build_dataset``, ``collate`` and the
 thread-pool loader (≙ ``stc_unet_tpu/datasets/builder.py``).
 
-As in the JAX package, batches are numpy NHWC stacks: the segmentor moves
-them to its device. The loader's threads overlap PNG decoding (zlib and the
-C unfilter release the GIL) with the model. The sampler pads the last batch
-to full size with the first indices, as the JAX loader does, and
+As in the JAX package, batches are numpy NHWC stacks: the segmentor (or
+the runner, through pinned memory) moves them to the card. The loader's
+threads overlap PNG decoding (zlib and the C unfilter release the GIL) and
+the train transforms with the model. The sampler pads the last batch to
+full size with the first indices, as the JAX loader does, and
 ``single_gpu_test`` drops the padded results.
+
+Each sample's random draws come from a ``numpy.random.RandomState`` of its
+own, seeded from (seed, epoch, rank, position in the rank's epoch)
+(:func:`sample_seed`). A batch is thus a pure function of those four,
+whatever ``workers_per_gpu`` is and however the threads are scheduled.
+This is the port's counterpart of the JAX ``worker_init_fn``
+(``builder.py:292``): the JAX package's thread workers share the global
+``np.random``, so its draws are not reproducible at ``workers_per_gpu >
+0``.
 """
 from __future__ import annotations
 
@@ -15,6 +25,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 
 from stc_unet_tpu_torch.utils import Registry
+from .samplers import DistributedSampler
 
 DATASETS = Registry('dataset')
 PIPELINES = Registry('pipeline')
@@ -77,53 +88,36 @@ def collate(samples: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
     return batch
 
 
-class EpochSampler:
-    """The index stream of the JAX loader (≙ reference
-    ``samplers/distributed_sampler.py:13``): every rank draws the same
-    seed+epoch permutation from its own ``np.random.RandomState``, pads it
-    to a multiple of num_replicas * batch_size with its first indices, and
-    takes a rank-strided slice."""
+class EpochSampler(DistributedSampler):
+    """The loader's index stream in the JAX loader's signature (≙ the
+    JAX ``builder.EpochSampler``): :class:`DistributedSampler` over ``n``
+    samples in whole batches of ``batch_size``; its length counts a
+    rank's batches."""
 
     def __init__(self, n: int, shuffle: bool, seed: int, num_replicas: int,
                  rank: int, batch_size: int, drop_last: bool = False):
-        self.n = n
-        self.shuffle = shuffle
-        self.seed = seed or 0
-        self.num_replicas = num_replicas
-        self.rank = rank
+        super().__init__(range(n), num_replicas, rank, shuffle, seed or 0,
+                         batch_size, drop_last)
         self.batch_size = batch_size
-        self.drop_last = drop_last
-        self.epoch = 0
-
-    def set_epoch(self, epoch: int):
-        self.epoch = epoch
-
-    def indices(self) -> np.ndarray:
-        if self.shuffle:
-            rng = np.random.RandomState(self.seed + self.epoch)
-            order = rng.permutation(self.n)
-        else:
-            order = np.arange(self.n)
-        step = self.num_replicas * self.batch_size
-        if self.drop_last:
-            total = (len(order) // step) * step
-            order = order[:total]
-        else:
-            total = int(np.ceil(len(order) / step)) * step
-            if total > len(order) and len(order) > 0:
-                pad = np.resize(order, total - len(order))
-                order = np.concatenate([order, pad])
-        return order[self.rank::self.num_replicas]
 
     def __len__(self):
-        return len(self.indices()) // self.batch_size
+        return self.num_samples // self.batch_size
+
+
+def sample_seed(seed: int, epoch: int, rank: int, position: int):
+    """The seed of one sample's ``RandomState``: ``[seed mod 2^32, epoch,
+    rank, position]`` (numpy seeds from such a list through
+    ``init_by_array``)."""
+    return [int(seed) % 2 ** 32, int(epoch), int(rank), int(position)]
 
 
 class DataLoader:
     """Thread-pool batch loader over a map-style dataset: yields collated
     numpy batches, two batches loading ahead of the one being consumed.
     ``num_workers=0`` loads inline. Each iteration owns its pool and shuts
-    it down when it ends or is closed."""
+    it down when it ends or is closed. A dataset with a ``load(idx, rng)``
+    method (``CustomDataset``) gets each sample's generator
+    (:func:`sample_seed`); any other is indexed."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 2, seed: Optional[int] = None,
@@ -132,7 +126,8 @@ class DataLoader:
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = num_workers
-        self.sampler = EpochSampler(len(dataset), shuffle, seed or 0,
+        self.seed = seed or 0
+        self.sampler = EpochSampler(len(dataset), shuffle, self.seed,
                                     num_replicas, rank, batch_size, drop_last)
 
     def set_epoch(self, epoch: int):
@@ -142,23 +137,32 @@ class DataLoader:
         return len(self.sampler)
 
     def _batches(self):
-        indices = self.sampler.indices()
+        """Batches of (position in the rank's epoch, dataset index)."""
+        indices = list(enumerate(self.sampler.indices()))
         return [indices[i * self.batch_size:(i + 1) * self.batch_size]
                 for i in range(len(indices) // self.batch_size)]
+
+    def _sample(self, position: int, idx: int):
+        load = getattr(self.dataset, 'load', None)
+        if load is None:
+            return self.dataset[int(idx)]
+        s = self.sampler
+        return load(int(idx), np.random.RandomState(
+            sample_seed(self.seed, s.epoch, s.rank, position)))
 
     def __iter__(self):
         batches = self._batches()
         if self.num_workers == 0:
             for b in batches:
-                yield collate([self.dataset[int(i)] for i in b])
+                yield collate([self._sample(*p) for p in b])
             return
         ahead = 2
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             pending = []
             try:
                 for b in batches:
-                    pending.append([pool.submit(self.dataset.__getitem__,
-                                                int(i)) for i in b])
+                    pending.append([pool.submit(self._sample, *p)
+                                    for p in b])
                     if len(pending) > ahead:
                         yield collate([f.result() for f in pending.pop(0)])
                 while pending:
@@ -176,9 +180,13 @@ def build_dataloader(dataset, samples_per_gpu: int, workers_per_gpu: int,
                      num_replicas: Optional[int] = None,
                      rank: int = 0, **kwargs):
     """Build the loader (≙ the JAX ``build_dataloader``): batches of
-    ``samples_per_gpu * num_gpus`` from ``workers_per_gpu`` threads.
-    ``dist``, ``pin_memory`` and ``persistent_workers`` are accepted for
-    the reference's argv and change nothing: one process feeds one card."""
+    ``samples_per_gpu * num_gpus`` from ``workers_per_gpu`` threads, each
+    epoch a ``seed + epoch`` permutation with ``shuffle``, the last batch
+    padded to full size unless ``drop_last``; each sample's draws seeded
+    by :func:`sample_seed`. ``dist``, ``pin_memory`` and
+    ``persistent_workers`` are accepted for the reference's argv and
+    change nothing: one process feeds one card, and the runner stages
+    each batch in pinned memory."""
     batch_size = samples_per_gpu * max(num_gpus, 1)
     return DataLoader(dataset, batch_size=batch_size, shuffle=shuffle,
                       num_workers=workers_per_gpu, seed=seed,

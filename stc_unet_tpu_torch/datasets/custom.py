@@ -4,9 +4,9 @@ reference's ``mmseg/datasets/custom.py:19``).
 Directory-layout dataset: ``img_dir`` scan (or split file) → per-image info
 dicts → pipeline. Evaluation accumulates (intersect, union, pred, label)
 4-tuples per image (``pre_eval``) and reduces to aAcc/IoU/Dice/Fscore.
-The test side is ported; ``prepare_train_img`` runs whatever train
-pipeline the port has (its random transforms come with ROADMAP.md §1,
-Item 12b).
+``load(idx, rng)`` runs the pipeline with ``rng`` (a numpy
+``RandomState``) in ``results['rng']``, where the train transforms draw
+from it; the train loader hands one in per sample.
 """
 from __future__ import annotations
 
@@ -137,14 +137,21 @@ class CustomDataset:
             results['label_map'] = self.label_map
 
     def __getitem__(self, idx):
+        return self.load(idx)
+
+    def load(self, idx, rng=None):
+        """The pipeline's output for sample ``idx``; the train transforms
+        draw from ``rng`` (and raise without one)."""
         if self.test_mode:
             return self.prepare_test_img(idx)
-        return self.prepare_train_img(idx)
+        return self.prepare_train_img(idx, rng)
 
-    def prepare_train_img(self, idx):
+    def prepare_train_img(self, idx, rng=None):
         img_info = self.img_infos[idx]
         ann_info = self.get_ann_info(idx)
         results = dict(img_info=img_info, ann_info=ann_info)
+        if rng is not None:
+            results['rng'] = rng
         self.pre_pipeline(results)
         return self.pipeline(results)
 

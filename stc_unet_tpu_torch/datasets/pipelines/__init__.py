@@ -1,9 +1,11 @@
 from .compose import Compose
-from .formatting import Collect, ImageToTensor
+from .formatting import Collect, DefaultFormatBundle, ImageToTensor
 from .loading import LoadAnnotations, LoadImage, LoadImageFromFile
 from .test_time_aug import MultiScaleFlipAug
-from .transforms import Normalize, RandomFlip, Resize
+from .transforms import (Normalize, Pad, PhotoMetricDistortion, RandomCrop,
+                         RandomFlip, Resize)
 
-__all__ = ['Compose', 'Collect', 'ImageToTensor', 'LoadAnnotations',
-           'LoadImage', 'LoadImageFromFile', 'MultiScaleFlipAug',
-           'Normalize', 'RandomFlip', 'Resize']
+__all__ = ['Compose', 'Collect', 'DefaultFormatBundle', 'ImageToTensor',
+           'LoadAnnotations', 'LoadImage', 'LoadImageFromFile',
+           'MultiScaleFlipAug', 'Normalize', 'Pad', 'PhotoMetricDistortion',
+           'RandomCrop', 'RandomFlip', 'Resize']

@@ -54,3 +54,23 @@ class Collect:
     def __repr__(self):
         return (f'{self.__class__.__name__}(keys={self.keys}, '
                 f'meta_keys={self.meta_keys})')
+
+
+@PIPELINES.register_module()
+class DefaultFormatBundle:
+    """The train batch's arrays: the image as float32 HWC (a gray image
+    given one channel), ``gt_semantic_seg`` as int64 (H, W)."""
+
+    def __call__(self, results):
+        if 'img' in results:
+            img = results['img']
+            if img.ndim < 3:
+                img = np.expand_dims(img, -1)
+            results['img'] = np.ascontiguousarray(img.astype(np.float32))
+        if 'gt_semantic_seg' in results:
+            results['gt_semantic_seg'] = results['gt_semantic_seg'].astype(
+                np.int64)
+        return results
+
+    def __repr__(self):
+        return self.__class__.__name__

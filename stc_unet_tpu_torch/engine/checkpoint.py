@@ -1,5 +1,10 @@
-"""Checkpoint loading (≙ the load side of
-``stc_unet_tpu/engine/checkpoint.py``).
+"""Checkpoints (≙ ``stc_unet_tpu/engine/checkpoint.py``): saving the
+port's ``.pth``, and loading a ``.pth`` or a JAX ``.ckpt``.
+
+The port writes ``.pth`` files in the reference fork's (mmcv's) layout:
+``{'meta': {..., 'epoch', 'iter', 'CLASSES', 'PALETTE'}, 'state_dict':
+the model's state_dict on the CPU, under the fork's keys, 'optimizer': the
+torch.optim state_dict}``, the last with ``save_optimizer`` only.
 
 A JAX ``.ckpt`` is one msgpack map ``{'meta': json str, 'variables':
 bytes, 'step': int, 'opt_state': bytes?}``, where ``variables`` and
@@ -20,12 +25,17 @@ legacy format) and loads the weights into a port model with
 """
 from __future__ import annotations
 
+import glob
 import json
-from typing import Any, Dict
+import os
+import os.path as osp
+import time
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+import stc_unet_tpu_torch
 from stc_unet_tpu_torch.utils import jax_to_torch_state
 from stc_unet_tpu_torch.utils.msgpack_decode import ExtType, unpackb
 
@@ -75,7 +85,7 @@ def msgpack_restore(data: bytes):
 def load_checkpoint_file(filename: str) -> Dict[str, Any]:
     """Read a JAX ``.ckpt`` → dict(meta, variables, step, opt_state?).
     ``opt_state`` is decoded and returned; nothing in the port uses it
-    yet (resuming comes with ROADMAP.md §1, Item 13)."""
+    (resuming from a ``.ckpt`` is ROADMAP.md §1, Item 13b)."""
     with open(filename, 'rb') as f:
         payload = unpackb(f.read())
     if not isinstance(payload, dict) or 'variables' not in payload:
@@ -118,3 +128,48 @@ def load_checkpoint(model, filename: str) -> Dict[str, Any]:
     if 'PALETTE' in meta:
         model.PALETTE = meta['PALETTE']
     return ckpt
+
+
+def save_checkpoint(model, filename: str, optimizer=None,
+                    meta: Optional[dict] = None) -> str:
+    """Write ``model`` (and ``optimizer``'s state, if given) to
+    ``filename`` in the fork's ``.pth`` layout, through a temporary file
+    and a rename. ``meta`` gets the time and the port's version; the
+    model's CLASSES and PALETTE where it has them and ``meta`` does not."""
+    meta = dict(meta or {})
+    meta.setdefault('time', time.asctime())
+    meta.setdefault('stc_unet_tpu_torch_version',
+                    stc_unet_tpu_torch.__version__)
+    for key in ('CLASSES', 'PALETTE'):
+        value = getattr(model, key, None)
+        if value is not None:
+            meta.setdefault(key, value)
+    checkpoint = {
+        'meta': meta,
+        'state_dict': {k: v.detach().cpu()
+                       for k, v in model.state_dict().items()}}
+    if optimizer is not None:
+        checkpoint['optimizer'] = optimizer.state_dict()
+    os.makedirs(osp.dirname(osp.abspath(filename)), exist_ok=True)
+    tmp = f'{filename}.tmp'
+    torch.save(checkpoint, tmp)
+    os.replace(tmp, filename)
+    return filename
+
+
+def find_latest_checkpoint(path: str, suffix: str = 'pth') -> Optional[str]:
+    """The newest checkpoint in ``path``: ``latest.{suffix}`` if there is
+    one, else the ``*.{suffix}`` with the largest number in its name;
+    None when there is none."""
+    if not osp.isdir(path):
+        return None
+    latest = osp.join(path, f'latest.{suffix}')
+    if osp.exists(latest):
+        return latest
+    best, best_step = None, -1
+    for ckpt in glob.glob(osp.join(path, f'*.{suffix}')):
+        digits = ''.join(c for c in osp.basename(ckpt) if c.isdigit())
+        step = int(digits) if digits else 0
+        if step > best_step:
+            best, best_step = ckpt, step
+    return best

@@ -1,2 +1,2 @@
-"""Measurement scripts of the port (``python -m
+"""The port's train CLI and measurement scripts (``python -m
 stc_unet_tpu_torch.tools.<name>``)."""

@@ -222,13 +222,15 @@ def test_resize_matches_jax(files, cfg, scale):
 
 
 def test_the_random_draws_raise():
+    """A transform that must draw and is handed no generator
+    (``results['rng']``) raises rather than take the global np.random."""
     results = dict(img=np.zeros((4, 4, 3), np.uint8), seg_fields=[])
     for cfg in (dict(img_scale=[(8, 8), (16, 16)]),
                 dict(img_scale=[(8, 8), (16, 16)], multiscale_mode='value'),
                 dict(img_scale=(8, 8), ratio_range=(0.5, 2.0))):
-        with pytest.raises(NotImplementedError, match='12b'):
+        with pytest.raises(ValueError, match='rng'):
             PIPELINES.build(dict(type='Resize', **cfg))(dict(results))
-    with pytest.raises(NotImplementedError, match='12b'):
+    with pytest.raises(ValueError, match='rng'):
         PIPELINES.build(dict(type='RandomFlip', prob=0.5))(dict(results))
 
 
