@@ -138,6 +138,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -242,6 +243,13 @@ TEST_PATH = dict(images=64, size=512, seed=0, cpu_images=4)
 # epochs, validating and checkpointing after each; its first step is held
 # to the CPU on the first batch's top-left 128² (full width on the CPU)
 TRAIN_PATH = dict(train=32, test=8, size=512, seed=1, epochs=2, crop=128)
+# the test CLI's .ckpt resume: a tiny STC-UNet checkpoint of the JAX package
+# with Adam's state (tests/fixtures/make_resume_ckpt.py)
+RESUME_CKPT = 'tests/fixtures/stc_unet_tiny_adam.ckpt'
+# the trained-accuracy protocol (tools/parity_trained.py's): 15 epochs at
+# B=8, bf16; a second run resumes for the last 3; train steps 4 and 5
+# traced by torch.profiler
+TRAINED_PATH = dict(epochs=15, batch=8, resume_span=3, profile=(4, 2))
 # MaxViT's window attention at B=8, 512²: (windows W, tokens N, channels C,
 # calls per forward) per stage; 32 heads, 8x8 windows and grids; the /4,
 # /8 and /16 stages run in the encoder and the decoder
@@ -1352,10 +1360,11 @@ def phase_test_path(torch, kern, model, cpu_model_fn, tf32):
     return launches
 
 
-def phase_train_path(torch, kern, tf32):
+def phase_train_path(torch, kern, tf32, root):
     """The port's training path through its entry point: writes a
     pseudo-KiTS split (``TRAIN_PATH``: 32 train and 8 test 512² PNG
-    pairs) and runs ``stc_unet_tpu_torch.tools.train.main`` on full-width
+    pairs) under ``root`` (kept for ``test_cli``, with the run's work dir
+    ``root``/work) and runs ``stc_unet_tpu_torch.tools.train.main`` on full-width
     ``my_config/STC-UNet.py`` with the config's own pipeline, batch 4, 2
     loader threads, f32 at the TF32 setting ``tf32`` (torch's defaults),
     Adam and poly lr, 2 epochs, validating (mDice) and checkpointing
@@ -1372,8 +1381,6 @@ def phase_train_path(torch, kern, tf32):
     than the EvalHook's last; K1, K2 and K2b do not launch 4 times a step
     and K1 and K2 4 times a validation forward. Then the step alone is
     timed on the same batches (CUDA events). Returns the launches."""
-    import logging
-    import tempfile
     import numpy as np
     from stc_unet_tpu_torch.apis import init_segmentor, single_gpu_test
     from stc_unet_tpu_torch.core import build_lr_schedule, build_optimizer
@@ -1381,7 +1388,6 @@ def phase_train_path(torch, kern, tf32):
     from stc_unet_tpu_torch.engine import HOOKS, Hook, make_train_step
     from stc_unet_tpu_torch.tools import train as train_cli
     from stc_unet_tpu_torch.utils import Config
-    from stc_unet_tpu_torch.utils.logger import get_root_logger
     start = time.perf_counter()
     label, cudnn, matmul = tf32
     n_train, n_test = TRAIN_PATH['train'], TRAIN_PATH['test']
@@ -1421,136 +1427,122 @@ def phase_train_path(torch, kern, tf32):
     HOOKS.register_module(module=lambda: record, name='TrainPathRecord',
                           force=True)
     cfg_path = os.path.join(REPO, STC_CONFIG)
-    work = os.path.join(REPO, 'work_dirs')
-    os.makedirs(work, exist_ok=True)
-    logger = get_root_logger()    # its console handler, made once
-    handlers = list(logger.handlers)
-    streams = [h for h in handlers if type(h) is logging.StreamHandler]
     faults = []
+    restore = _quiet_logger()     # the run's INFO lines go to its log
     try:
-        with tempfile.TemporaryDirectory(dir=work) as root:
-            t0 = time.perf_counter()
-            write_split(root, n_train, TRAIN_PATH['size'], TRAIN_PATH['seed'],
-                        split='train')
-            write_split(root, n_test, TRAIN_PATH['size'],
-                        TRAIN_PATH['seed'] + 1)
-            write_s = time.perf_counter() - t0
-            wd = os.path.join(root, 'work')
-            argv = [cfg_path, '--work-dir', wd, '--seed', '0',
-                    '--cfg-options', f'data.train.data_root={root}',
-                    f'data.val.data_root={root}',
-                    f'runner.max_epochs={epochs}',
-                    'checkpoint_config.interval=1',
-                    "custom_hooks=[{'type': 'TrainPathRecord', "
-                    "'priority': 'HIGHEST'}]"]
-            set_tf32(torch, cudnn, matmul)
-            for h in streams:         # the run's INFO lines go to its log
-                h.setLevel(logging.WARNING)
-            reset_counts(kern)
-            t0 = time.perf_counter()
-            runner = train_cli.main(argv)
-            torch.cuda.synchronize()
-            run_s = time.perf_counter() - t0
-            counts = read_counts(kern)
-            for h in streams:
-                h.setLevel(logging.INFO)
-            steps = len(record.batches)
-            forwards = epochs * n_test
-            want = per_call(dict(
-                strip_pools=4 * (steps + forwards),
-                gate_add=4 * (steps + forwards), gate_dots=4 * steps))
-            if counts != want or steps != epochs * n_train // 4:
-                faults.append(f'{steps} steps and {forwards} validation '
-                              f'forwards launched {counts}, want {want}')
-            losses = {k: torch.stack([lv[k] for lv in record.logs]).cpu()
-                      for k in record.logs[0]}
-            if not all(bool(torch.isfinite(v).all())
-                       for v in losses.values()):
-                faults.append(f'a loss is not finite: {losses}')
-            cfg = Config.fromfile(os.path.join(wd, 'STC-UNet.py'))
-            # the first batch, rebuilt on the CPU from the same seed
-            loader = build_dataloader(build_dataset(cfg.data.train), 4, 0,
-                                      seed=0)
-            loader.set_epoch(0)
-            cpu_batch = next(iter(loader))
-            pipeline_ms = _median_ms(
-                lambda i: loader.dataset.load(i, np.random.RandomState(i)),
-                range(8))
-            img0, gt0 = (t.cpu() for t in record.batches[0])
-            batch_equal = bool(
-                torch.equal(img0, torch.from_numpy(cpu_batch['img'])) and
-                torch.equal(gt0, torch.from_numpy(
-                    cpu_batch['gt_semantic_seg'])))
-            if not batch_equal:
-                faults.append('the first batch differs from its CPU '
-                              'rebuild')
-            # the first step on the first batch's crop, card vs CPU
-            set_tf32(torch, False, False)
-            check_cfg = Config.fromfile(os.path.join(wd, 'STC-UNet.py'))
-            check_cfg.model.decode_head.dropout_ratio = 0.0
-            first = {}
-            t0 = time.perf_counter()
-            for where in ('cuda', 'cpu'):
-                m = init_segmentor(check_cfg, device=where)
-                m.load_state_dict(record.initial)
-                step = make_train_step(m, build_optimizer(m, cfg.optimizer))
-                lv = step(img0[:, :crop, :crop].to(where),
-                          gt0[:, :crop, :crop].to(where))
-                first[where] = {k: v.item() for k, v in lv.items()}
-                del m, step
-            cpu_step_s = time.perf_counter() - t0
-            pixel = 100.0 / int((gt0[:, :crop, :crop] != 255).sum())
-            for k, b in first['cpu'].items():
-                a = first['cuda'][k]
-                limit = 1e-5 * abs(b) + 1e-6 if 'loss' in k else 3 * pixel
-                if not math.isfinite(a) or abs(a - b) > limit:
-                    faults.append(f'first step {k}: card {a} cpu {b}')
-            set_tf32(torch, cudnn, matmul)
-            # latest.pth in a fresh model; its mDice on its own
-            latest = os.path.join(wd, 'latest.pth')
-            fresh = init_segmentor(cfg, latest)
-            val_cfg = cfg.data.val
-            val_cfg.test_mode = True
-            val_loader = build_dataloader(build_dataset(val_cfg), 1, 2,
-                                          shuffle=False)
-            img = torch.from_numpy(next(iter(val_loader))['img'][0]).cuda()
-            runner.model.eval()
-            with torch.no_grad():
-                want_logits = runner.model.whole_inference(img, None, False)
-                got_logits = fresh.whole_inference(img, None, False)
-            logit_err = (got_logits - want_logits).abs().max().item()
-            logit_max = want_logits.abs().max().item()
-            if logit_err > 1e-5 * logit_max:
-                faults.append(f'latest.pth logits off by {logit_err} '
-                              f'(largest {logit_max})')
-            separate = val_loader.dataset.evaluate(
-                single_gpu_test(fresh, val_loader, pre_eval=True),
-                metric=cfg.evaluation['metric'], logger='silent')['mDice']
-            if len(record.mdice) != epochs or separate != record.mdice[-1]:
-                faults.append(f'EvalHook mDice {record.mdice} vs '
-                              f'single_gpu_test of latest.pth {separate}')
-            ckpts = sorted(f for f in os.listdir(wd) if f.endswith('.pth'))
-            del fresh
-            # the step alone on the run's batches
-            gen = torch.Generator(device='cuda').manual_seed(0)
-            step = runner._train_step
-            for img_b, gt_b in record.batches[:2]:
-                step(img_b, gt_b, gen)
-            t_start = torch.cuda.Event(enable_timing=True)
-            t_end = torch.cuda.Event(enable_timing=True)
-            t_start.record()
-            for img_b, gt_b in record.batches:
-                step(img_b, gt_b, gen)
-            t_end.record()
-            t_end.synchronize()
-            step_s = t_start.elapsed_time(t_end) / 1e3
+        t0 = time.perf_counter()
+        write_split(root, n_train, TRAIN_PATH['size'], TRAIN_PATH['seed'],
+                    split='train')
+        write_split(root, n_test, TRAIN_PATH['size'],
+                    TRAIN_PATH['seed'] + 1)
+        write_s = time.perf_counter() - t0
+        wd = os.path.join(root, 'work')
+        argv = [cfg_path, '--work-dir', wd, '--seed', '0',
+                '--cfg-options', f'data.train.data_root={root}',
+                f'data.val.data_root={root}',
+                f'runner.max_epochs={epochs}',
+                'checkpoint_config.interval=1',
+                "custom_hooks=[{'type': 'TrainPathRecord', "
+                "'priority': 'HIGHEST'}]"]
+        set_tf32(torch, cudnn, matmul)
+        reset_counts(kern)
+        t0 = time.perf_counter()
+        runner = train_cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts(kern)
+        steps = len(record.batches)
+        forwards = epochs * n_test
+        want = per_call(dict(
+            strip_pools=4 * (steps + forwards),
+            gate_add=4 * (steps + forwards), gate_dots=4 * steps))
+        if counts != want or steps != epochs * n_train // 4:
+            faults.append(f'{steps} steps and {forwards} validation '
+                          f'forwards launched {counts}, want {want}')
+        losses = {k: torch.stack([lv[k] for lv in record.logs]).cpu()
+                  for k in record.logs[0]}
+        if not all(bool(torch.isfinite(v).all())
+                   for v in losses.values()):
+            faults.append(f'a loss is not finite: {losses}')
+        cfg = Config.fromfile(os.path.join(wd, 'STC-UNet.py'))
+        # the first batch, rebuilt on the CPU from the same seed
+        loader = build_dataloader(build_dataset(cfg.data.train), 4, 0,
+                                  seed=0)
+        loader.set_epoch(0)
+        cpu_batch = next(iter(loader))
+        pipeline_ms = _median_ms(
+            lambda i: loader.dataset.load(i, np.random.RandomState(i)),
+            range(8))
+        img0, gt0 = (t.cpu() for t in record.batches[0])
+        batch_equal = bool(
+            torch.equal(img0, torch.from_numpy(cpu_batch['img'])) and
+            torch.equal(gt0, torch.from_numpy(
+                cpu_batch['gt_semantic_seg'])))
+        if not batch_equal:
+            faults.append('the first batch differs from its CPU '
+                          'rebuild')
+        # the first step on the first batch's crop, card vs CPU
+        set_tf32(torch, False, False)
+        check_cfg = Config.fromfile(os.path.join(wd, 'STC-UNet.py'))
+        check_cfg.model.decode_head.dropout_ratio = 0.0
+        first = {}
+        t0 = time.perf_counter()
+        for where in ('cuda', 'cpu'):
+            m = init_segmentor(check_cfg, device=where)
+            m.load_state_dict(record.initial)
+            step = make_train_step(m, build_optimizer(m, cfg.optimizer))
+            lv = step(img0[:, :crop, :crop].to(where),
+                      gt0[:, :crop, :crop].to(where))
+            first[where] = {k: v.item() for k, v in lv.items()}
+            del m, step
+        cpu_step_s = time.perf_counter() - t0
+        pixel = 100.0 / int((gt0[:, :crop, :crop] != 255).sum())
+        for k, b in first['cpu'].items():
+            a = first['cuda'][k]
+            limit = 1e-5 * abs(b) + 1e-6 if 'loss' in k else 3 * pixel
+            if not math.isfinite(a) or abs(a - b) > limit:
+                faults.append(f'first step {k}: card {a} cpu {b}')
+        set_tf32(torch, cudnn, matmul)
+        # latest.pth in a fresh model; its mDice on its own
+        latest = os.path.join(wd, 'latest.pth')
+        fresh = init_segmentor(cfg, latest)
+        val_cfg = cfg.data.val
+        val_cfg.test_mode = True
+        val_loader = build_dataloader(build_dataset(val_cfg), 1, 2,
+                                      shuffle=False)
+        img = torch.from_numpy(next(iter(val_loader))['img'][0]).cuda()
+        runner.model.eval()
+        with torch.no_grad():
+            want_logits = runner.model.whole_inference(img, None, False)
+            got_logits = fresh.whole_inference(img, None, False)
+        logit_err = (got_logits - want_logits).abs().max().item()
+        logit_max = want_logits.abs().max().item()
+        if logit_err > 1e-5 * logit_max:
+            faults.append(f'latest.pth logits off by {logit_err} '
+                          f'(largest {logit_max})')
+        separate = val_loader.dataset.evaluate(
+            single_gpu_test(fresh, val_loader, pre_eval=True),
+            metric=cfg.evaluation['metric'], logger='silent')['mDice']
+        if len(record.mdice) != epochs or separate != record.mdice[-1]:
+            faults.append(f'EvalHook mDice {record.mdice} vs '
+                          f'single_gpu_test of latest.pth {separate}')
+        ckpts = sorted(f for f in os.listdir(wd) if f.endswith('.pth'))
+        del fresh
+        # the step alone on the run's batches
+        gen = torch.Generator(device='cuda').manual_seed(0)
+        step = runner._train_step
+        for img_b, gt_b in record.batches[:2]:
+            step(img_b, gt_b, gen)
+        t_start = torch.cuda.Event(enable_timing=True)
+        t_end = torch.cuda.Event(enable_timing=True)
+        t_start.record()
+        for img_b, gt_b in record.batches:
+            step(img_b, gt_b, gen)
+        t_end.record()
+        t_end.synchronize()
+        step_s = t_start.elapsed_time(t_end) / 1e3
     finally:
-        for h in streams:
-            h.setLevel(logging.INFO)
-        for h in logger.handlers[:]:     # the run's log file
-            if h not in handlers:
-                logger.removeHandler(h)
-                h.close()
+        restore()
         set_tf32(torch, False, False)
     images = 4 * steps
     train_s = sum(record.epoch_s)
@@ -1592,6 +1584,375 @@ def phase_train_path(torch, kern, tf32):
     if faults:
         raise AssertionError(f'train_path: {faults}')
     del runner, record
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _quiet_logger():
+    """The port's logger with its console handlers at WARNING (a CLI's
+    INFO lines go to its log file); returns a function that restores
+    them and drops the handlers added since."""
+    import logging
+    from stc_unet_tpu_torch.utils.logger import get_root_logger
+    logger = get_root_logger()
+    handlers = list(logger.handlers)
+    streams = [h for h in handlers if type(h) is logging.StreamHandler]
+    for h in streams:
+        h.setLevel(logging.WARNING)
+
+    def restore():
+        for h in streams:
+            h.setLevel(logging.INFO)
+        for h in logger.handlers[:]:
+            if h not in handlers:
+                logger.removeHandler(h)
+                h.close()
+    return restore
+
+
+def resume_ckpt_check(torch):
+    """The JAX package's tiny STC-UNet checkpoint with Adam's state
+    (``RESUME_CKPT``, made by ``tests/fixtures/make_resume_ckpt.py``),
+    resumed by ``EpochBasedRunner.resume`` on the card and on the CPU, then
+    two steps of the runner on one 64² batch (B=2, f32, TF32 off, no
+    dropout), as ``train_check`` holds a step: each step's losses, the
+    first step's gradients within 3x the largest of eight one-ulp nudges on
+    the CPU, its BN stats. Adam's state must be on the card before the
+    first step, and ``step`` at the checkpoint's count."""
+    import numpy as np
+    from stc_unet_tpu_torch.core import build_optimizer
+    from stc_unet_tpu_torch.engine import (EpochBasedRunner,
+                                           load_checkpoint_file)
+    from stc_unet_tpu_torch.models import build_segmentor
+    from stc_unet_tpu_torch.utils import Config
+    path = os.path.join(REPO, RESUME_CKPT)
+    ckpt = load_checkpoint_file(path)
+    meta, widths = ckpt['meta'], ckpt['meta']['widths']
+    cfg = Config.fromfile(os.path.join(REPO, STC_CONFIG))
+    cfg.model.backbone.channel_list = widths['channel_list']
+    cfg.model.decode_head.update(channels=widths['channels'],
+                                 decoder_channel=widths['decoder_channel'],
+                                 dropout_ratio=0.0)
+    g = torch.Generator().manual_seed(4)
+    img = torch.rand((2, 64, 64, 3), generator=g)
+    gt = (img.mean(-1) > 0.5).long()
+    gt[:, :3] = 255
+    faults, logs, grads, stats, state0 = [], {}, {}, {}, None
+    placed = {}
+    for where in ('cuda', 'cpu'):
+        model = build_segmentor(cfg.model).to(where)
+        opt = build_optimizer(model, meta['optimizer'])
+        runner = EpochBasedRunner(model, opt, max_epochs=2)
+        runner.resume(path)
+        first = next(model.parameters())
+        st = opt.state[first]
+        placed[where] = dict(exp_avg=str(st['exp_avg'].device),
+                             exp_avg_sq=str(st['exp_avg_sq'].device),
+                             step=float(st['step']),
+                             epoch=runner.epoch, iter=runner.iter)
+        if where == 'cuda' and (st['exp_avg'].device.type != 'cuda' or
+                                st['exp_avg_sq'].device.type != 'cuda'):
+            faults.append(f'Adam state on the card run: {placed[where]}')
+        if float(st['step']) != ckpt['step'] or runner.iter != ckpt['step']:
+            faults.append(f'{where}: step {placed[where]}, want '
+                          f'{ckpt["step"]}')
+        if where == 'cpu':
+            state0 = {k: v.clone() for k, v in model.state_dict().items()}
+        logs[where] = []
+        batch = dict(img=img.numpy(), gt_semantic_seg=gt.numpy())
+        for i in range(2):
+            runner.run_iter(batch, train_mode=True)
+            logs[where].append({k: float(v) for k, v in
+                                runner.outputs['log_vars'].items()})
+            if i == 0:
+                grads[where] = {k: p.grad.float().cpu() for k, p in
+                                model.named_parameters()}
+                stats[where] = {k: v.cpu().clone() for k, v in
+                                model.state_dict().items()
+                                if k.endswith(('running_mean',
+                                               'running_var'))}
+    pixel = 100.0 / int((gt != 255).sum())
+    for a, b in zip(logs['cuda'], logs['cpu']):
+        for k in b:
+            limit = 1e-5 * abs(b[k]) + 1e-6 if 'loss' in k else 3 * pixel
+            if not math.isfinite(a[k]) or abs(a[k] - b[k]) > limit:
+                faults.append(f'{k}: card {a[k]} cpu {b[k]}')
+    rel, whole = grad_errors(grads['cuda'], grads['cpu'])
+    nudged = [grad_errors(nudged_grads(torch, cfg, state0, img, gt, s),
+                          grads['cpu']) for s in NUDGE_SEEDS]
+    yard_whole = max(w for _, w in nudged)
+    yard = {k: max(GRAD_FLOOR, *(r[k] for r, _ in nudged)) for k in rel}
+    if whole > 3 * yard_whole:
+        faults.append(f'gradient off by {whole}, over 3 x {yard_whole}')
+    faults += [f'gradient {k} off by {e}, over 3 x {yard[k]}'
+               for k, e in rel.items() if e > 3 * yard[k]]
+    stats_err = 0.0
+    for k, ref in stats['cpu'].items():
+        diff = (stats['cuda'][k] - ref).abs()
+        stats_err = max(stats_err, diff.max().item())
+        if bool((diff > 1e-5 + 1e-4 * ref.abs()).any()):
+            faults.append(f'{k} off by {diff.max().item()}')
+    return dict(checkpoint=RESUME_CKPT, widths=widths,
+                optimizer=meta['optimizer'], resumed=placed, losses=logs,
+                grad_whole=whole, one_ulp_whole_max=yard_whole,
+                grad_worst=_worst(rel, 3),
+                bn_stats_step1_max_abs_err=stats_err), faults
+
+
+def phase_test_cli(torch, kern, tf32, root):
+    """The test CLI, ``stc_unet_tpu_torch.tools.test.main(argv)`` in
+    process, at full width on ``train_path``'s test split (8 pseudo-KiTS
+    512² pairs under ``root``/test) and its ``latest.pth``, at the TF32
+    setting ``tf32`` (torch's defaults):
+
+    - ``--eval mIoU mDice --out --show-dir``: the metrics JSON must equal
+      ``evaluate`` of a direct ``single_gpu_test(pre_eval=True)`` of
+      ``init_segmentor`` on the same checkpoint and split, and the
+      ``--out`` pickle those areas (the CLI's default ``--eval`` makes its
+      results the label maps' ``pre_eval`` areas); each ``--show-dir`` PNG,
+      read back with the port's codec, must equal ``show_result``'s blend
+      of the direct run's label map over the pipeline's image, on the
+      host; K1 and K2 4 launches an image;
+    - ``--eval cityscapes`` (how the CLI formats; ``--format-only`` needs
+      an empty ``--eval``): one PNG an image, equal to the label maps;
+    - ``--aug-test`` on 2 images (a split file): 48 K1 and K2 launches an
+      image (6 scales, each twice for the flip); then on 1 image the
+      card's labels against the port's on the CPU, off the pixels whose
+      CPU margin (of the averaged class probabilities) lies within
+      ``TF32_LIMITS``' 0.1 of its spread (``compare_eval``);
+    - ``resume_ckpt_check``: a JAX ``.ckpt`` with Adam's state resumed on
+      the card and on the CPU.
+
+    Times each CLI run on the host clock (slices/s). Returns the
+    launches."""
+    import pickle
+    import numpy as np
+    from stc_unet_tpu_torch.apis import init_segmentor, single_gpu_test
+    from stc_unet_tpu_torch.apis.test import painted_image
+    from stc_unet_tpu_torch.datasets import build_dataloader, build_dataset
+    from stc_unet_tpu_torch.tools import test as test_cli
+    from stc_unet_tpu_torch.utils import Config, image, png
+    start = time.perf_counter()
+    label, cudnn, matmul = tf32
+    wd = os.path.join(root, 'work')
+    cfg_path = os.path.join(wd, 'STC-UNet.py')
+    ckpt = os.path.join(wd, 'latest.pth')
+    images = os.path.join(root, 'test', 'images')
+    out = os.path.join(root, 'cli')
+    n = len(os.listdir(images))
+    launches = dict.fromkeys(KERNELS, 0)
+    faults, runs = [], {}
+
+    def cli(tag, argv, images_run, per_image):
+        reset_counts(kern)
+        t0 = time.perf_counter()
+        results = test_cli.main([images, cfg_path, ckpt, '--work-dir',
+                                 os.path.join(out, tag)] + argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts(kern)
+        want = {k: images_run * per_image * v
+                for k, v in per_call(STC_FORWARD).items()}
+        if counts != want:
+            faults.append(f'{tag}: {images_run} images launched {counts}, '
+                          f'want {want}')
+        for k in launches:
+            launches[k] += counts[k]
+        runs[tag] = dict(images=images_run, seconds=seconds,
+                         slices_per_s=images_run / seconds)
+        return results
+
+    restore = _quiet_logger()
+    set_tf32(torch, cudnn, matmul)
+    try:
+        results = cli('eval', ['--eval', 'mIoU', 'mDice', '--out',
+                               os.path.join(out, 'out.pkl'), '--show-dir',
+                               os.path.join(out, 'vis')], n, 1)
+        [json_name] = os.listdir(os.path.join(out, 'eval'))
+        with open(os.path.join(out, 'eval', json_name)) as f:
+            cli_metric = json.load(f)['metric']
+        with open(os.path.join(out, 'out.pkl'), 'rb') as f:
+            pickled = pickle.load(f)
+        # the same checkpoint and split, directly
+        cfg = Config.fromfile(cfg_path)
+        cfg.data.test.update(data_root=images, img_dir=images,
+                             ann_dir=images.replace('images', 'labels'),
+                             test_mode=True)
+        model = init_segmentor(cfg, ckpt)
+        dataset = build_dataset(cfg.data.test)
+        loader = build_dataloader(dataset, 1, 2, shuffle=False)
+        pre = single_gpu_test(model, loader, pre_eval=True)
+        maps = single_gpu_test(model, loader)
+        metric = dataset.evaluate(pre, metric=['mIoU', 'mDice'],
+                                  logger='silent')
+        if json.loads(json.dumps(metric, default=str)) != cli_metric:
+            faults.append(f'CLI metrics {cli_metric}, direct {metric}')
+        if len(pickled) != n or any(
+                not np.array_equal(np.stack(a), np.stack(b))
+                for a, b in zip(pickled, pre)) or len(results) != n:
+            faults.append('the --out pickle differs from the direct '
+                          'pre_eval areas')
+        painted = 0
+        for i, m in enumerate(maps):
+            sample = dataset[i]
+            meta = sample['img_metas'][0]
+            want = model.show_result(painted_image(sample['img'][0], meta),
+                                     [m], palette=dataset.PALETTE)
+            got = image.imread(os.path.join(out, 'vis',
+                                            meta['ori_filename']))
+            painted += int(np.array_equal(got, want))
+        if painted != n:
+            faults.append(f'{n - painted} --show-dir images differ from '
+                          f'show_result')
+        cli('format', ['--eval', 'cityscapes', '--eval-options',
+                       f'imgfile_prefix={os.path.join(out, "fmt")}'], n, 1)
+        formatted = sorted(os.listdir(os.path.join(out, 'fmt')))
+        if len(formatted) != n or any(
+                not np.array_equal(png.read(os.path.join(out, 'fmt', f)), m)
+                for f, m in zip(formatted, maps)):
+            faults.append(f'formatted results {formatted} differ from the '
+                          f'label maps')
+        # --aug-test on 2 images
+        two = [os.path.splitext(dataset.img_infos[i]['filename'])[0]
+               for i in range(2)]
+        split = os.path.join(root, 'split_aug.txt')
+        with open(split, 'w') as f:
+            f.write(''.join(f'{s}\n' for s in two))
+        aug_pre = cli('aug', ['--aug-test', '--eval', 'mIoU', 'mDice',
+                              '--cfg-options', f'data.test.split={split}'],
+                      2, 12)
+        # its first image on the card and on the CPU
+        aug_cfg = Config.fromfile(cfg_path)
+        aug_cfg.data.test.pipeline[1].update(
+            img_ratios=list(test_cli.AUG_RATIOS), flip=True)
+        with open(split, 'w') as f:
+            f.write(f'{two[0]}\n')
+        aug_cfg.data.test.update(data_root=images, img_dir=images,
+                                 ann_dir=images.replace('images', 'labels'),
+                                 split=split, test_mode=True)
+        one = build_dataloader(build_dataset(aug_cfg.data.test), 1, 0,
+                               shuffle=False)
+        card = init_segmentor(aug_cfg, ckpt)
+        card_maps = single_gpu_test(card, one)
+        card_pre = single_gpu_test(card, one, pre_eval=True)
+        t0 = time.perf_counter()
+        cpu = init_segmentor(aug_cfg, ckpt, device='cpu')
+        kept, predict = [], cpu._predict
+        cpu._predict = lambda s: kept.append(s) or predict(s)
+        cpu_pre = single_gpu_test(cpu, one, pre_eval=True)
+        cpu_s = time.perf_counter() - t0
+        aug_check, f = compare_eval(
+            card_maps, card_pre, cpu_pre, kept[0],
+            TF32_LIMITS['margin_err_over_spread'])
+        faults += [f'aug-test card vs CPU: {x}' for x in f]
+        if len(aug_pre) != 2:
+            faults.append(f'--aug-test gave {len(aug_pre)} results')
+        del model, card, cpu
+        set_tf32(torch, False, False)
+        resumed, f = resume_ckpt_check(torch)
+        faults += [f'resume: {x}' for x in f]
+    finally:
+        restore()
+        set_tf32(torch, False, False)
+    emit('test_cli', ok=not faults, faults=faults[:8],
+         entry='python -m stc_unet_tpu_torch.tools.test (main(argv) in '
+               'process)', checkpoint='train_path latest.pth',
+         split=dict(images=n, size=TRAIN_PATH['size']), tf32=label,
+         metrics=cli_metric, runs=runs,
+         show_dir_equal=painted, formatted=len(formatted),
+         aug_test_one_image=dict(cpu_s=cpu_s, **aug_check),
+         resume_ckpt=resumed,
+         launches={k: v for k, v in launches.items() if v},
+         phase_s=time.perf_counter() - start,
+         timer='each CLI run: host clock over main(argv), the card synced '
+               'after (the model build, the checkpoint load and the '
+               'dataset included)')
+    if faults:
+        raise AssertionError(f'test_cli: {faults[:4]}')
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_trained_path(torch, kern, tf32):
+    """The trained-accuracy protocol, ``python -m
+    stc_unet_tpu_torch.tools.parity_trained`` (``main(argv)`` in process):
+    the JAX tool's learnable pseudo-KiTS fixture (``TRAINED_PATH``: 32
+    train and 8 test 512² pairs), full-width STC-UNet trained through the
+    train CLI at the JAX protocol (Adam lr 3e-4, B=8, bf16, 15 epochs) and
+    evaluated through the test CLI, at the TF32 setting ``tf32`` (torch's
+    defaults). ``TorchProfilerHook`` traces train steps 4 and
+    5. The run saves ``epoch_12.pth`` with its optimizer, and a second run
+    resumes from it to epoch 15. Faults: mDice under 0.9; no trace file,
+    or no K2b kernel (``strip_band<..., true>``) in it; the resumed run's
+    first step's losses off the unbroken run's by more than rtol 1e-5 (the
+    same weights, batch and dropout draw), or its final parameters by more
+    than the Adam band 2·steps·lr; K1, K2 and K2b not launched 4 times a
+    step (the two runs' and the tool's step timed alone) and K1 and K2 4
+    times a test forward. Returns the launches."""
+    from stc_unet_tpu_torch.tools import parity_trained
+    start = time.perf_counter()
+    label, cudnn, matmul = tf32
+    epochs, span = TRAINED_PATH['epochs'], TRAINED_PATH['resume_span']
+    restore = _quiet_logger()
+    faults = []
+    work = os.path.join(REPO, 'work_dirs')
+    set_tf32(torch, cudnn, matmul)
+    try:
+        with tempfile.TemporaryDirectory(dir=work) as wd:
+            reset_counts(kern)
+            record = parity_trained.main([
+                '--work-dir', wd, '--epochs', str(epochs), '--batch',
+                str(TRAINED_PATH['batch']), '--resume-span', str(span),
+                '--profile', *map(str, TRAINED_PATH['profile'])])
+            counts = read_counts(kern)
+            trace = record.get('profile_trace')
+            names = set()
+            if trace and os.path.isfile(trace):
+                with open(trace) as f:
+                    names = {e.get('name', '') for e in
+                             json.load(f).get('traceEvents', [])}
+            k2b = sorted(x for x in names
+                         if re.search(r'strip_band<[^<>]*true>', x))
+    finally:
+        restore()
+        set_tf32(torch, False, False)
+    # the two runs' steps and the step timed alone on the last batch
+    steps = record['steps'] + record['resume']['steps'] + \
+        record['step_alone_steps']
+    forwards = record['test_imgs']
+    want = per_call(dict(strip_pools=4 * (steps + forwards),
+                         gate_add=4 * (steps + forwards),
+                         gate_dots=4 * steps))
+    if counts != want:
+        faults.append(f'{steps} steps and {forwards} test forwards launched '
+                      f'{counts}, want {want}')
+    if record['port']['mDice'] < 0.9:
+        faults.append(f'mDice {record["port"]["mDice"]} < 0.9')
+    if not k2b:
+        faults.append(f'no K2b kernel in the trace {trace}')
+    resume = record['resume']
+    if any(e > 1e-5 for e in resume['first_step_loss_rel_err'].values()):
+        faults.append(f'resumed first step {resume}')
+    if resume['params_max_abs_err'] > resume['params_band']:
+        faults.append(f'resumed parameters {resume}')
+    record.pop('losses')
+    emit('trained_path', ok=not faults, faults=faults,
+         entry='python -m stc_unet_tpu_torch.tools.parity_trained '
+               '(main(argv) in process)', config=STC_CONFIG,
+         tf32=label, mdice=record['port']['mDice'],
+         miou=record['port']['mIoU'],
+         jax_mdice=record.get('jax', {}).get('mDice'),
+         img_per_s=record['img_per_s'], host_share=record['host_share'],
+         test_slices_per_s=record['test_slices_per_s'],
+         trace_k2b_kernels=k2b, trace_events=len(names),
+         record=record, launches={k: v for k, v in counts.items() if v},
+         phase_s=time.perf_counter() - start,
+         timer='epochs: host clock, the card synced at each start and end '
+               '(data loading in); step alone: one CUDA event pair over 10 '
+               'steps on the last batch after 2; test: host clock over the '
+               'CLI')
+    if faults:
+        raise AssertionError(f'trained_path: {faults}')
     torch.cuda.empty_cache()
     return counts
 
@@ -2392,10 +2753,17 @@ def main(argv=None):
                                 ('torch default',) + default_tf32)
     for name in KERNELS:
         launches[name] += evaluated[name]
-    trained_path = phase_train_path(torch, kern,
-                                    ('torch default',) + default_tf32)
+    # the training path, then the test CLI on its split and checkpoint
+    work = os.path.join(REPO, 'work_dirs')
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as root:
+        for phase in (phase_train_path, phase_test_cli):
+            ran = phase(torch, kern, ('torch default',) + default_tf32, root)
+            for name in KERNELS:
+                launches[name] += ran[name]
+    ran = phase_trained_path(torch, kern, ('torch default',) + default_tf32)
     for name in KERNELS:
-        launches[name] += trained_path[name]
+        launches[name] += ran[name]
 
     # 5. timing
     stc_rows = phase_timing(torch, model, [('off', False, False),

@@ -132,7 +132,9 @@ def train_segmentor(model, dataset, cfg, distributed=False, validate=False,
                              priority='LOW')
 
     if cfg.get('auto_resume'):
-        resume_from = find_latest_checkpoint(cfg.work_dir)
+        # the port's latest.pth; else the newest .ckpt of a JAX run
+        resume_from = find_latest_checkpoint(cfg.work_dir) or \
+            find_latest_checkpoint(cfg.work_dir, 'ckpt')
         if resume_from is not None:
             logger.info(f'auto-resume from {resume_from}')
             cfg.resume_from = resume_from

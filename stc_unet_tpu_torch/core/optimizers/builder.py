@@ -102,7 +102,8 @@ def build_optimizer(model: nn.Module, cfg: dict) -> torch.optim.Optimizer:
     if constructor in ('LearningRateDecayOptimizerConstructor',
                        'LayerDecayOptimizerConstructor'):
         raise NotImplementedError(
-            f'{constructor} is not ported yet (ROADMAP.md, Slice E)')
+            f'{constructor} is not ported yet (ROADMAP.md §1, Slice E item '
+            f'20)')
     if constructor != 'DefaultOptimizerConstructor':
         raise NotImplementedError(
             f'optimizer constructor {constructor} not supported yet')

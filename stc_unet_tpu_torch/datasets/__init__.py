@@ -1,5 +1,6 @@
 from .builder import (DATASETS, PIPELINES, DataLoader, EpochSampler,
-                      build_dataloader, build_dataset, collate, sample_seed)
+                      build_dataloader, build_dataset, collate,
+                      inject_img_cache, sample_seed)
 from .custom import CustomDataset
 from .my_dataset import MyDataset
 from . import pipelines  # noqa: F401  (registers the transforms)
@@ -7,4 +8,4 @@ from .samplers import DistributedSampler
 
 __all__ = ['DATASETS', 'PIPELINES', 'DataLoader', 'DistributedSampler',
            'EpochSampler', 'build_dataloader', 'build_dataset', 'collate',
-           'sample_seed', 'CustomDataset', 'MyDataset']
+           'inject_img_cache', 'sample_seed', 'CustomDataset', 'MyDataset']

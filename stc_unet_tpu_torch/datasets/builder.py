@@ -36,27 +36,38 @@ _WRAPPERS = ('RepeatDataset', 'ConcatDataset', 'MultiImageMixDataset')
 def build_dataset(cfg, default_args=None):
     """Build a dataset from cfg (≙ the JAX ``build_dataset``). The dataset
     wrappers of ``dataset_wrappers.py`` (a list of cfgs, the wrapper types,
-    list-valued ``img_dir`` or ``split``) and the image cache are not
-    ported yet."""
+    list-valued ``img_dir`` or ``split``) are not ported yet."""
     if isinstance(cfg, (list, tuple)) or cfg['type'] in _WRAPPERS or \
             isinstance(cfg.get('img_dir'), (list, tuple)) or \
             isinstance(cfg.get('split'), (list, tuple)):
         raise NotImplementedError(
             'dataset wrappers (Concat/Repeat/MultiImageMix) are not ported '
             'yet (ROADMAP.md §1, Item 20: dataset_wrappers.py)')
-    for step in _pipeline_steps(cfg.get('pipeline', [])):
-        if step.get('cache') is not None:
-            raise NotImplementedError(
-                'the image cache is not ported yet (ROADMAP.md §1, Item 12b: '
-                'pipelines/img_cache.py)')
     return DATASETS.build(cfg, default_args=default_args)
 
 
-def _pipeline_steps(steps):
-    for step in steps:
-        if isinstance(step, dict):
-            yield step
-            yield from _pipeline_steps(step.get('transforms', []))
+def inject_img_cache(dataset_cfg, mode, cache_dir=None):
+    """Set ``cache=mode`` (and ``cache_dir``) on every ``LoadImageFromFile``
+    and ``LoadAnnotations`` of a dataset cfg's pipeline, nested ones
+    (``MultiScaleFlipAug``'s) included, that sets no cache of its own
+    (≙ the JAX ``inject_img_cache``, for ``data.img_cache``). Mutates and
+    returns ``dataset_cfg``."""
+
+    def walk(steps):
+        for step in steps:
+            if not isinstance(step, dict):
+                continue
+            if step.get('type') in ('LoadImageFromFile',
+                                    'LoadAnnotations') and \
+                    'cache' not in step:
+                step['cache'] = mode
+                if cache_dir is not None:
+                    step['cache_dir'] = cache_dir
+            if isinstance(step.get('transforms'), (list, tuple)):
+                walk(step['transforms'])
+
+    walk(dataset_cfg.get('pipeline', []))
+    return dataset_cfg
 
 
 def collate(samples: Sequence[Dict[str, Any]]) -> Dict[str, Any]:

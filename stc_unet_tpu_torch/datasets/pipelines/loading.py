@@ -9,6 +9,7 @@ import numpy as np
 from stc_unet_tpu_torch.utils import image as mmimg
 from stc_unet_tpu_torch.utils import png
 from ..builder import PIPELINES
+from .img_cache import build_img_cache
 
 
 def imread_annotation(path) -> np.ndarray:
@@ -21,25 +22,24 @@ def imread_annotation(path) -> np.ndarray:
     return gt.astype(np.uint8)
 
 
-def _no_cache(cache, what):
-    if cache is not None:
-        raise NotImplementedError(
-            f'{what}: the image cache is not ported yet (ROADMAP.md §1, Item '
-            f'12b: pipelines/img_cache.py)')
-
-
 @PIPELINES.register_module()
 class LoadImageFromFile:
     """Load a BGR uint8 image and seed the shape and scale meta (≙ the JAX
-    ``LoadImageFromFile``; ``cache=None`` only)."""
+    ``LoadImageFromFile``), through the decoded-image cache with
+    ``cache='ram'|'disk'``."""
 
     def __init__(self, to_float32=False, color_type='color',
                  file_client_args=None, imdecode_backend='cv2',
                  cache=None, cache_dir=None):
-        _no_cache(cache, 'LoadImageFromFile')
         self.to_float32 = to_float32
         self.color_type = color_type
         self.imdecode_backend = imdecode_backend
+        self.cache = build_img_cache(
+            cache, cache_dir, params=('img', color_type, imdecode_backend))
+
+    def _decode(self, filename):
+        return mmimg.imread(filename, flag=self.color_type,
+                            backend=self.imdecode_backend)
 
     def __call__(self, results):
         if results.get('img_prefix') is not None:
@@ -47,8 +47,10 @@ class LoadImageFromFile:
                                 results['img_info']['filename'])
         else:
             filename = results['img_info']['filename']
-        img = mmimg.imread(filename, flag=self.color_type,
-                           backend=self.imdecode_backend)
+        if self.cache is not None:
+            img = self.cache.get(filename, self._decode)
+        else:
+            img = self._decode(filename)
         if self.to_float32:
             img = img.astype(np.float32)
         results['filename'] = filename
@@ -66,22 +68,28 @@ class LoadImageFromFile:
         return results
 
     def __repr__(self):
+        cache = self.cache.mode if self.cache is not None else None
         return (f'{self.__class__.__name__}(to_float32={self.to_float32}, '
                 f"color_type='{self.color_type}', "
-                f"imdecode_backend='{self.imdecode_backend}', cache=None)")
+                f"imdecode_backend='{self.imdecode_backend}', "
+                f'cache={cache!r})')
 
 
 @PIPELINES.register_module()
 class LoadAnnotations:
     """Load the semantic segmentation map (≙ the JAX ``LoadAnnotations``):
-    read as stored → uint8, the custom-classes ``label_map`` remap, then
+    read as stored → uint8 (through the decoded-image cache with
+    ``cache='ram'|'disk'``), the custom-classes ``label_map`` remap, then
     ``reduce_zero_label``."""
 
     def __init__(self, reduce_zero_label=False, file_client_args=None,
                  imdecode_backend='pillow', cache=None, cache_dir=None):
-        _no_cache(cache, 'LoadAnnotations')
         self.reduce_zero_label = reduce_zero_label
         self.imdecode_backend = imdecode_backend
+        # the raw decode is cached: the remaps below write into the served
+        # array
+        self.cache = build_img_cache(cache, cache_dir,
+                                     params=('ann', imdecode_backend))
 
     def __call__(self, results):
         if results.get('seg_prefix', None) is not None:
@@ -89,7 +97,10 @@ class LoadAnnotations:
                                 results['ann_info']['seg_map'])
         else:
             filename = results['ann_info']['seg_map']
-        gt_semantic_seg = imread_annotation(filename)
+        if self.cache is not None:
+            gt_semantic_seg = self.cache.get(filename, imread_annotation)
+        else:
+            gt_semantic_seg = imread_annotation(filename)
         if results.get('label_map', None) is not None:
             gt_copy = gt_semantic_seg.copy()
             for old_id, new_id in results['label_map'].items():
@@ -103,9 +114,11 @@ class LoadAnnotations:
         return results
 
     def __repr__(self):
+        cache = self.cache.mode if self.cache is not None else None
         return (f'{self.__class__.__name__}'
                 f'(reduce_zero_label={self.reduce_zero_label}, '
-                f"imdecode_backend='{self.imdecode_backend}', cache=None)")
+                f"imdecode_backend='{self.imdecode_backend}', "
+                f'cache={cache!r})')
 
 
 @PIPELINES.register_module()

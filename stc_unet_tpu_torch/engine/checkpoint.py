@@ -21,7 +21,9 @@ flax splits a leaf over 1 GiB into chunks; such a file is refused.
 the first bytes: torch's files are zip archives, or pickles in torch's
 legacy format) and loads the weights into a port model with
 ``strict=True``, the ``.ckpt``'s variables through
-``jax_to_torch_state``.
+``jax_to_torch_state``. ``load_opt_state`` maps a ``.ckpt``'s optax
+``opt_state`` onto a ``torch.optim`` optimizer's state (≙ the JAX
+``restore_into``), for resuming a run that the JAX package started.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 import stc_unet_tpu_torch
+from stc_unet_tpu_torch.core.optimizers import RMSprop
 from stc_unet_tpu_torch.utils import jax_to_torch_state
 from stc_unet_tpu_torch.utils.msgpack_decode import ExtType, unpackb
 
@@ -83,9 +86,7 @@ def msgpack_restore(data: bytes):
 
 
 def load_checkpoint_file(filename: str) -> Dict[str, Any]:
-    """Read a JAX ``.ckpt`` → dict(meta, variables, step, opt_state?).
-    ``opt_state`` is decoded and returned; nothing in the port uses it
-    (resuming from a ``.ckpt`` is ROADMAP.md §1, Item 13b)."""
+    """Read a JAX ``.ckpt`` → dict(meta, variables, step, opt_state?)."""
     with open(filename, 'rb') as f:
         payload = unpackb(f.read())
     if not isinstance(payload, dict) or 'variables' not in payload:
@@ -130,6 +131,100 @@ def load_checkpoint(model, filename: str) -> Dict[str, Any]:
     return ckpt
 
 
+def _optax_states(opt_state) -> Dict[str, Any]:
+    """The states of the JAX package's optax chain
+    (``stc_unet_tpu/core/optimizers/builder.py:build_optimizer_tx``), as
+    flax serialises a chain: ``{'0': state, '1': ...}``, each state a dict
+    of its fields. The chain is: coupled ``add_decayed_weights``, then one
+    of ``scale_by_adam`` (``count``, ``mu``, ``nu``), ``trace`` (SGD
+    momentum) or ``scale_by_rms`` (``nu``), then decoupled decay and the
+    ``paramwise_cfg`` lr masks, then ``scale_by_schedule`` (``count``).
+    The decays and masks keep no state (``{}``). Returns the states by
+    kind: ``adam``, ``trace``, ``rms``, ``schedule``."""
+    kinds = {}
+    for key in sorted(opt_state, key=int):
+        state = opt_state[key]
+        fields = set(state)
+        kind = {frozenset(): None,
+                frozenset({'count', 'mu', 'nu'}): 'adam',
+                frozenset({'trace'}): 'trace',
+                frozenset({'nu'}): 'rms',
+                frozenset({'count'}): 'schedule'}.get(frozenset(fields), '?')
+        if kind == '?' or kind in kinds:
+            raise ValueError(f'opt_state entry {key} with fields '
+                             f'{sorted(fields)} is not a state of the JAX '
+                             f'package\'s optax chain')
+        if kind is not None:
+            kinds[kind] = state
+    return kinds
+
+
+def load_opt_state(optimizer: torch.optim.Optimizer, model,
+                   opt_state) -> None:
+    """Set ``optimizer``'s state (an optimizer of ``core.build_optimizer``
+    over ``model``'s parameters) from a ``.ckpt``'s ``opt_state``:
+    ``mu``/``nu`` → Adam's and AdamW's ``exp_avg``/``exp_avg_sq``,
+    ``trace`` → SGD's ``momentum_buffer``, RMSprop's ``nu`` → the port
+    ``RMSprop``'s ``nu``, Adam's ``count`` → ``step``. Each moment tree
+    goes through ``jax_to_torch_state``, the weights' key translation and
+    layout transposes: a moment is elementwise, so the same permutation
+    is exact. ``torch.optim``'s ``load_state_dict`` puts the moments on
+    their parameters' device and dtype (and ``step`` where torch keeps
+    it); a moment left elsewhere raises. The optimizer's kind must match
+    the chain's (SGD without momentum keeps no state)."""
+    kinds = _optax_states(opt_state)
+    params = dict(model.named_parameters())
+    if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        need = 'adam'
+    elif isinstance(optimizer, torch.optim.SGD):
+        need = 'trace' if any(g['momentum'] for g in
+                              optimizer.param_groups) else None
+    elif isinstance(optimizer, RMSprop):
+        need = 'rms'
+    else:
+        raise ValueError(f'no opt_state mapping for '
+                         f'{type(optimizer).__name__}')
+    held = sorted(set(kinds) - {'schedule'})
+    if held != ([need] if need else []):
+        raise ValueError(f'the checkpoint holds optax states {held}; '
+                         f'{type(optimizer).__name__} needs '
+                         f'{[need] if need else []}')
+
+    def moments(field):
+        sd = jax_to_torch_state({'params': kinds[need][field]})
+        shapes = {k: tuple(v.shape) for k, v in sd.items()}
+        want = {k: tuple(p.shape) for k, p in params.items()}
+        if shapes != want:
+            off = sorted(k for k in set(shapes) | set(want)
+                         if shapes.get(k) != want.get(k))
+            raise ValueError(f'opt_state {need}.{field} does not match the '
+                             f'model\'s parameters: {off[:4]}')
+        return {id(params[k]): v for k, v in sd.items()}
+
+    per_param = {}
+    if need == 'adam':
+        step = torch.tensor(float(np.asarray(kinds['adam']['count'])),
+                            dtype=torch.float32)
+        mu, nu = moments('mu'), moments('nu')
+        per_param = {i: dict(step=step.clone(), exp_avg=mu[i],
+                             exp_avg_sq=nu[i]) for i in mu}
+    elif need == 'trace':
+        per_param = {i: dict(momentum_buffer=v)
+                     for i, v in moments('trace').items()}
+    elif need == 'rms':
+        per_param = {i: dict(nu=v) for i, v in moments('nu').items()}
+    order = [p for g in optimizer.param_groups for p in g['params']]
+    state_dict = optimizer.state_dict()
+    state_dict['state'] = {n: per_param[id(p)] for n, p in enumerate(order)
+                           if id(p) in per_param}
+    optimizer.load_state_dict(state_dict)
+    for p in order:
+        for k, v in optimizer.state[p].items():
+            if k != 'step' and torch.is_tensor(v) and v.device != p.device:
+                raise RuntimeError(f'optimizer state {k} on {v.device}, its '
+                                   f'parameter on {p.device}')
+
+
 def save_checkpoint(model, filename: str, optimizer=None,
                     meta: Optional[dict] = None) -> str:
     """Write ``model`` (and ``optimizer``'s state, if given) to
@@ -160,7 +255,8 @@ def save_checkpoint(model, filename: str, optimizer=None,
 def find_latest_checkpoint(path: str, suffix: str = 'pth') -> Optional[str]:
     """The newest checkpoint in ``path``: ``latest.{suffix}`` if there is
     one, else the ``*.{suffix}`` with the largest number in its name;
-    None when there is none."""
+    None when there is none. ``suffix='ckpt'`` finds the JAX package's
+    as its ``find_latest_checkpoint`` does."""
     if not osp.isdir(path):
         return None
     latest = osp.join(path, f'latest.{suffix}')

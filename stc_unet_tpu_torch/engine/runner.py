@@ -14,7 +14,8 @@ draws.
 A checkpoint's ``meta`` counts what is done: ``epoch`` the epochs begun
 (``runner.epoch + 1``, as in the JAX package) and ``iter`` the iterations
 taken (the JAX package writes one more at an epoch's end; mmcv writes
-this). ``resume`` takes both back.
+this). ``resume`` takes both back, from the port's ``.pth`` or from a JAX
+``.ckpt``, whose ``step`` counts the iterations taken.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from stc_unet_tpu_torch.utils.logger import get_root_logger
-from .checkpoint import is_torch_file, load_checkpoint, save_checkpoint
+from .checkpoint import load_checkpoint, load_opt_state, save_checkpoint
 from .hooks import HOOKS, Hook, LogBuffer, get_priority
 from .train_state import make_train_step, make_val_step
 
@@ -201,21 +202,29 @@ class BaseRunner:
         return ckpt
 
     def resume(self, checkpoint, resume_optimizer=True):
-        """Weights, optimizer state and the epoch and iteration counts of
-        one of the port's ``.pth`` files."""
-        if not is_torch_file(checkpoint):
-            raise NotImplementedError(
-                f'resuming from a JAX .ckpt ({checkpoint}) is not ported: '
-                f"optax's opt_state is not mapped onto torch.optim "
-                f'(ROADMAP.md §1, Item 13b); load its weights with '
-                f'load_from instead')
+        """Weights, optimizer state (with ``resume_optimizer``, where the
+        file has one) and the epoch and iteration counts of one of the
+        port's ``.pth`` files or of a JAX ``.ckpt``. A ``.ckpt``'s
+        iterations are its ``step``, its optax ``opt_state`` goes through
+        ``load_opt_state``, and the BN layers' ``num_batches_tracked``
+        (which flax does not keep) is set to the step, as an unbroken
+        run of the port would have it. The lr schedule goes on from the
+        iteration count."""
         ckpt = self.load_checkpoint(checkpoint)
         meta = ckpt.get('meta') or {}
         self.epoch = int(meta.get('epoch', 0))
-        self.iter = self._iters_done = int(meta.get('iter', 0))
+        if 'variables' in ckpt:                  # a JAX .ckpt
+            self.iter = self._iters_done = int(ckpt['step'])
+            for name, buf in self.model.named_buffers():
+                if name.endswith('num_batches_tracked'):
+                    buf.fill_(self.iter)
+            if resume_optimizer and 'opt_state' in ckpt:
+                load_opt_state(self.optimizer, self.model, ckpt['opt_state'])
+        else:
+            self.iter = self._iters_done = int(meta.get('iter', 0))
+            if resume_optimizer and 'optimizer' in ckpt:
+                self.optimizer.load_state_dict(ckpt['optimizer'])
         self._schedule_base = self.iter
-        if resume_optimizer and 'optimizer' in ckpt:
-            self.optimizer.load_state_dict(ckpt['optimizer'])
         self.logger.info(f'resumed epoch {self.epoch}, iter {self.iter}')
 
     # -- core steps ----------------------------------------------------------

@@ -1,12 +1,13 @@
 """BaseSegmentor (≙ ``stc_unet_tpu/models/segmentors/base.py``): the
 protocol of the reference API on an ``nn.Module``:
 ``forward(return_loss=...)``, the ``simple_test``/``aug_test`` dispatch,
-and ``train_step``/``val_step`` with ``_parse_losses``."""
+``train_step``/``val_step`` with ``_parse_losses``, and ``show_result``."""
 from __future__ import annotations
 
 from abc import ABCMeta, abstractmethod
 from typing import Optional
 
+import numpy as np
 import torch.nn as nn
 
 from ..losses.utils import total_loss_from_dict
@@ -90,3 +91,46 @@ class BaseSegmentor(nn.Module, metaclass=ABCMeta):
         Slice C item 14)."""
         loss, log_vars = total_loss_from_dict(losses)
         return loss, {k: float(v.detach()) for k, v in log_vars.items()}
+
+    # -- visualisation -------------------------------------------------------
+    def show_result(self, img, result, palette=None, win_name='', show=False,
+                    wait_time=0, out_file=None, opacity=0.5):
+        """Blend a label map over a BGR image with the class palette (≙ the
+        JAX ``show_result``, byte for byte): ``img·(1 - opacity) +
+        color·opacity`` in float64, truncated to uint8, the palette's RGB
+        colours put in BGR order. The palette is ``palette``, else the
+        model's ``PALETTE``, else ``np.random.RandomState(42)``'s draw of
+        one colour a label. ``img`` is an array or a PNG path. The blend
+        is written to ``out_file`` as PNG (its directories made) and
+        returned when there is no ``out_file``. ``show`` (a window)
+        raises: the port needs no window toolkit, and the card's machine
+        has none."""
+        from stc_unet_tpu_torch.utils import image as mmimg
+        if show:
+            raise NotImplementedError(
+                'show_result(show=True) opens a window, and the port has no '
+                'window toolkit (the card\'s machine has none); pass '
+                'out_file')
+        img = np.ascontiguousarray(mmimg.imread(img))
+        seg = np.asarray(result[0] if isinstance(result, list) else result)
+        if palette is None:
+            if self.PALETTE is None:
+                rng = np.random.RandomState(42)
+                palette = rng.randint(0, 255, size=(int(seg.max()) + 1, 3))
+            else:
+                palette = self.PALETTE
+        palette = np.array(palette)
+        if palette.ndim != 2 or palette.shape[1] != 3:
+            raise ValueError(f'palette: (classes, 3) colours, got '
+                             f'{palette.shape}')
+        if not 0 < opacity <= 1.0:
+            raise ValueError(f'opacity {opacity} is not in (0, 1]')
+        color_seg = np.zeros((seg.shape[0], seg.shape[1], 3), dtype=np.uint8)
+        for label, color in enumerate(palette):
+            color_seg[seg == label, :] = color
+        color_seg = color_seg[..., ::-1]
+        out = (img * (1 - opacity) + color_seg * opacity).astype(np.uint8)
+        if out_file is not None:
+            mmimg.imwrite(out, out_file)
+            return None
+        return out

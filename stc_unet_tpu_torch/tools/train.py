@@ -7,11 +7,14 @@
 
 It trains on the card (``--device cuda``, the default) and raises when
 CUDA is missing rather than fall back to the CPU; ``--device cpu`` asks
-for the CPU. ``--load-from`` takes a ``.pth`` or a JAX ``.ckpt``,
-``--resume-from`` one of the port's ``.pth``. Launchers other than
-``none`` (more than one GPU) raise. The work dir gets the config,
-``<timestamp>.log``, ``<timestamp>.log.json`` and the checkpoints
-(``epoch_{n}.pth``, ``latest.pth``).
+for the CPU. ``--load-from`` and ``--resume-from`` take a ``.pth`` or a
+JAX ``.ckpt`` (its optax state mapped onto ``torch.optim``'s);
+``--auto-resume`` takes the work dir's ``latest.pth``, else its newest
+``.ckpt``. ``data.img_cache='ram'|'disk'`` (and ``data.img_cache_dir``)
+puts the loaders of the train and val splits behind the decoded-image
+cache. Launchers other than ``none`` (more than one GPU) raise. The work
+dir gets the config, ``<timestamp>.log``, ``<timestamp>.log.json`` and
+the checkpoints (``epoch_{n}.pth``, ``latest.pth``).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 import stc_unet_tpu_torch
 from stc_unet_tpu_torch.apis import (init_random_seed, set_random_seed,
                                      train_device, train_segmentor)
-from stc_unet_tpu_torch.datasets import build_dataset
+from stc_unet_tpu_torch.datasets import build_dataset, inject_img_cache
 from stc_unet_tpu_torch.models import build_segmentor
 from stc_unet_tpu_torch.utils import Config
 from stc_unet_tpu_torch.utils.logger import get_root_logger
@@ -151,6 +154,14 @@ def main(argv=None):
                             test_cfg=cfg.get('test_cfg'))
     model.init_weights(seed=seed)
     logger.info(model.__class__.__name__)
+
+    if cfg.data.get('img_cache'):
+        for split in ('train', 'val'):
+            if cfg.data.get(split) is not None:
+                inject_img_cache(cfg.data[split], cfg.data['img_cache'],
+                                 cfg.data.get('img_cache_dir'))
+        logger.info('img_cache: %s decode cache enabled',
+                    cfg.data['img_cache'])
 
     datasets = [build_dataset(cfg.data.train)]
     if len(cfg.workflow) == 2:

@@ -235,14 +235,20 @@ def test_single_gpu_test_format_only_matches_jax(split, models, tmp_path):
         assert not ((a != b) & ~ex).any()
 
 
-def test_single_gpu_test_flags(split, models):
+def test_single_gpu_test_flags(split, models, tmp_path):
     _, tm, _ = models
     loader = _loaders(split[0])[0]
     with pytest.raises(ValueError, match='mutually exclusive'):
         single_gpu_test(tm, loader, pre_eval=True, format_only=True)
-    for kw in (dict(show=True), dict(out_dir='x')):
-        with pytest.raises(NotImplementedError, match='show_result'):
-            single_gpu_test(tm, loader, **kw)
+    with pytest.raises(NotImplementedError, match='window'):
+        single_gpu_test(tm, loader, show=True)
+    # out_dir paints each image with its label map (ported): 5 PNGs
+    out_dir = osp.join(str(tmp_path), 'painted')
+    maps = single_gpu_test(tm, loader, out_dir=out_dir)
+    assert sorted(os.listdir(out_dir)) == [f'case_{i:05d}.png'
+                                           for i in range(5)]
+    painted = np.array(Image.open(osp.join(out_dir, 'case_00000.png')))
+    assert painted.shape == (32, 32, 3) and painted.dtype == np.uint8
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter('always')
         maps = single_gpu_test(tm, loader, efficient_test=True)

@@ -53,7 +53,8 @@ from stc_unet_tpu_torch.datasets import (build_dataloader, build_dataset,
 from stc_unet_tpu_torch.engine import (HOOKS, EpochBasedRunner, Hook,
                                        LogBuffer, TensorboardLoggerHook,
                                        find_latest_checkpoint,
-                                       load_checkpoint, save_checkpoint)
+                                       load_checkpoint, load_checkpoint_file,
+                                       save_checkpoint)
 from stc_unet_tpu_torch.core import build_optimizer
 from stc_unet_tpu_torch.models import build_segmentor
 from stc_unet_tpu_torch.utils import Config, jax_to_torch_state
@@ -455,13 +456,22 @@ def test_what_is_not_ported_raises(roots, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA'):
             train_segmentor(model, ds, cfg)
-    ckpt = str(tmp_path / 'x.ckpt')
-    with open(ckpt, 'wb') as f:
-        f.write(b'\x83')                      # a msgpack map, not torch's
+    # a JAX .ckpt resumes (Item 13b, ported): the fixture's weights, its
+    # Adam state and counts (epoch 1 of 1: nothing left to train)
+    ckpt = osp.join(REPO, 'tests', 'fixtures', 'stc_unet_tiny_adam.ckpt')
     resume = Config(cfg.to_dict())
+    widths = load_checkpoint_file(ckpt)['meta']['widths']
+    resume.model.backbone.channel_list = widths['channel_list']
+    resume.model.decode_head.update(
+        channels=widths['channels'],
+        decoder_channel=widths['decoder_channel'])
+    resume.runner.max_epochs = 1
     resume.resume_from = ckpt
-    with pytest.raises(NotImplementedError, match='Item 13b'):
-        train_segmentor(model, ds, resume, device='cpu')
+    runner = train_segmentor(build_segmentor(resume.model), ds, resume,
+                             device='cpu')
+    assert (runner.epoch, runner.iter) == (1, 2)
+    state = runner.optimizer.state[next(runner.model.parameters())]
+    assert float(state['step']) == 2 and bool(state['exp_avg'].any())
     from stc_unet_tpu_torch.engine import DistEvalHook
     with pytest.raises(NotImplementedError, match='item 14'):
         DistEvalHook(None)
