@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``stc_unet_tpu_torch``) on one card.
 
-Drives the port's four paths, its test path and its training path at
-full width, with random weights from seed 0: STC-UNet
+Drives the port's four paths, its test path and its training path (with
+the augmentation on the host and on the card) at full width, with random weights from seed 0: STC-UNet
 (``my_config/STC-UNet.py``) and MaxViT-UNet
 (``my_config/MaxViT-UNet.py``) inference through ``init_segmentor`` and
 ``model(return_loss=False, img=[...], img_metas=[...])``, STC-UNet in
@@ -117,7 +117,22 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
     first batch to its CPU rebuild (bit for bit), the first step's losses
     on its 128² crop to the CPU (TF32 off), ``latest.pth``'s logits and
     mDice to the trained model's and the EvalHook's, checks K1, K2 and
-    K2b's launches, and times the epochs beside the step alone.
+    K2b's launches, and times the epochs beside the step alone; then
+    (``test_cli``) runs the test CLI on its split and checkpoint;
+12. runs the train augmentation on the card (``device_pipeline``): the
+    flagship's host prefix (decode, Resize to 600², uint8 padding) on 24
+    learnable 512² pairs, the device program (crop, flip, photometric
+    distortion, normalize) held to the CPU from one generator seed, the
+    ``DeviceBatchLoader`` with and without prefetch bit-equal on the card;
+    times the program beside the host prefix and the whole host pipeline
+    an image;
+13. runs the JAX trained-accuracy protocol (``trained_path``,
+    ``stc_unet_tpu_torch.tools.parity_trained``): 15 epochs at B=8, bf16,
+    with the host pipeline and then with the augmentation on the card,
+    each run's checkpoint to mDice 0.9 through the test CLI, a resume
+    of its last 3 epochs and a profiler trace; then the five input
+    configurations of ``stc_unet_tpu_torch.tools.profile_input`` at 2
+    epochs each (``profile_input``), K1, K2 and K2b 4 launches a step.
 
     python3 chip_smoke.py
 
@@ -250,6 +265,16 @@ RESUME_CKPT = 'tests/fixtures/stc_unet_tiny_adam.ckpt'
 # B=8, bf16; a second run resumes for the last 3; train steps 4 and 5
 # traced by torch.profiler
 TRAINED_PATH = dict(epochs=15, batch=8, resume_span=3, profile=(4, 2))
+# the augmentation on the card (datasets/device_pipeline.py): 24 of
+# trained_path's learnable 512² pairs through the flagship's host prefix
+# (Resize to 600², DeviceFormatBundle) in 3 batches of 8; the program on
+# the card against the CPU from one generator seed; the photometric step
+# within the CPU tests' 1e-4 on the 0-255 scale, the rest exact
+DEVICE_PIPELINE = dict(images=24, batch=8, seed=1234, photo_tol=1e-4)
+# tools.profile_input's five input configurations at the JAX protocol's
+# B=8, bf16, on 32 learnable pairs: 2 epochs each (the JAX record's 6, cut
+# to the script's time)
+PROFILE_INPUT = dict(epochs=2, batch=8, train=32)
 # MaxViT's window attention at B=8, 512²: (windows W, tokens N, channels C,
 # calls per forward) per stage; 32 heads, 8x8 windows and grids; the /4,
 # /8 and /16 stages run in the encoder and the decoder
@@ -1873,22 +1898,228 @@ def phase_test_cli(torch, kern, tf32, root):
     return launches
 
 
+class _Batches:
+    """A host loader's stand-in: the same collated batches each pass."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __len__(self):
+        return len(self.batches)
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def phase_device_pipeline(torch):
+    """The train augmentation on the card
+    (``stc_unet_tpu_torch/datasets/device_pipeline.py``): writes
+    ``DEVICE_PIPELINE``'s 24 learnable 512² pairs (the fixture of
+    ``trained_path``), splits the flagship's train pipeline
+    (``split_train_pipeline``) and loads the samples through its host
+    prefix (decode, Resize to 600², ``DeviceFormatBundle``) into batches
+    of 8. Faults: the program (crop, flip, photometric, normalize) on the
+    card from one generator seed does not give the CPU's labels, the
+    CPU's image without the photometric step bit for bit, or its image
+    with it within ``photo_tol``; its outputs are not on ``cuda``; a
+    ``DeviceBatchLoader`` on the card gives other bits with ``prefetch``
+    2 (a side stream in a feeder thread) than with 0, or batches off the
+    card. Times the program on a B=8 batch already on the card (CUDA
+    events, and device time), its upload, and on one thread the host
+    prefix's and the whole host pipeline's ms an image (median of 8, as
+    ``train_path`` times the pipeline)."""
+    import numpy as np
+    from stc_unet_tpu_torch.datasets import (DeviceBatchLoader,
+                                             build_dataset, collate,
+                                             make_device_train_pipeline,
+                                             split_train_pipeline)
+    from stc_unet_tpu_torch.tools.parity_trained import build_learnable_kits
+    from stc_unet_tpu_torch.utils import Config
+    start = time.perf_counter()
+    n, b = DEVICE_PIPELINE['images'], DEVICE_PIPELINE['batch']
+    faults = []
+    work = os.path.join(REPO, 'work_dirs')
+    with tempfile.TemporaryDirectory(dir=work) as root:
+        build_learnable_kits(root, n, 0, 512)
+        cfg = Config.fromfile(os.path.join(REPO, STC_CONFIG))
+        cfg.data.train.data_root = root
+        host_cfg, params = split_train_pipeline(cfg.data.train.pipeline)
+        full = build_dataset(cfg.data.train)
+        full_ms = _median_ms(
+            lambda i: full.load(i, np.random.RandomState(i)), range(8))
+        prefix_cfg = Config(cfg.to_dict()).data.train
+        prefix_cfg.pipeline = host_cfg
+        prefix = build_dataset(prefix_cfg)
+        prefix_ms = _median_ms(
+            lambda i: prefix.load(i, np.random.RandomState(i)), range(8))
+        batches = [collate([prefix.load(i, None)
+                            for i in range(k * b, (k + 1) * b)])
+                   for k in range(n // b)]
+    batch = batches[0]
+    valid = batch['valid_hw']
+    img_cpu = torch.from_numpy(batch['img'])
+    gt_cpu = torch.from_numpy(batch['gt_semantic_seg'])
+    img_dev, gt_dev = img_cpu.cuda(), gt_cpu.cuda()
+
+    def run(fn, img, gt):
+        gen = torch.Generator().manual_seed(DEVICE_PIPELINE['seed'])
+        return fn(gen, img, gt, valid)
+
+    fn = make_device_train_pipeline(**params)
+    plain = make_device_train_pipeline(**dict(params, photo_metric=False))
+    card, cpu = run(fn, img_dev, gt_dev), run(fn, img_cpu, gt_cpu)
+    card_plain, cpu_plain = run(plain, img_dev, gt_dev), \
+        run(plain, img_cpu, gt_cpu)
+    torch.cuda.synchronize()
+    drawn = fn.draw(torch.Generator().manual_seed(DEVICE_PIPELINE['seed']),
+                    b, tuple(img_cpu.shape[1:3]), valid)
+    on_card = all(t.device.type == 'cuda' for t in card + card_plain)
+    if not on_card:
+        faults.append('the program\'s outputs are not on cuda')
+    labels_equal = torch.equal(card[1].cpu(), cpu[1])
+    plain_equal = torch.equal(card_plain[0].cpu(), cpu_plain[0]) and \
+        torch.equal(card_plain[1].cpu(), cpu_plain[1])
+    photo_err = (card[0].cpu() - cpu[0]).abs().max().item()
+    if not labels_equal:
+        faults.append('labels differ from the CPU\'s')
+    if not plain_equal:
+        faults.append('crop, flip and normalize differ from the CPU\'s')
+    if not photo_err <= DEVICE_PIPELINE['photo_tol']:
+        faults.append(f'photometric step {photo_err} off the CPU\'s')
+    # the loader on the card, synchronous and prefetched
+    streams = {}
+    for prefetch in (0, 2):
+        loader = DeviceBatchLoader(_Batches(batches), params, seed=0,
+                                   prefetch=prefetch)
+        streams[prefetch] = [(x['img'], x['gt_semantic_seg'])
+                             for x in loader]
+    torch.cuda.synchronize()
+    stream_equal = len(streams[0]) == len(streams[2]) == n // b and all(
+        torch.equal(a, c) for x, y in zip(streams[0], streams[2])
+        for a, c in zip(x, y))
+    stream_devices = sorted({t.device.type for s in streams.values()
+                             for x in s for t in x})
+    if not stream_equal:
+        faults.append('prefetch 2 gives another stream than prefetch 0')
+    if stream_devices != ['cuda']:
+        faults.append(f'loader batches on {stream_devices}')
+    # timing: the program on a batch on the card, the upload
+    apply = lambda: fn.apply(img_dev, gt_dev, drawn)  # noqa: E731
+    program_ms, program_device_ms = event_ms(torch, apply), device_ms(apply)
+    upload_ms = event_ms(torch, lambda: (
+        img_cpu.pin_memory().cuda(non_blocking=True),
+        gt_cpu.pin_memory().cuda(non_blocking=True)))
+    crop = params['crop_size']
+    f32_pass_bytes = b * crop[0] * crop[1] * 3 * 4
+    emit('device_pipeline', ok=not faults, faults=faults, config=STC_CONFIG,
+         host_pipeline=[c['type'] for c in host_cfg],
+         host_size=host_cfg[-2]['size'], params=params, batch=b,
+         batches=n // b, input_shape=list(img_cpu.shape),
+         output_shape=list(card[0].shape), output_dtype=str(card[0].dtype),
+         label_dtype=str(card[1].dtype), outputs_on_cuda=on_card,
+         labels_equal_cpu=labels_equal,
+         crop_flip_normalize_equal_cpu=plain_equal,
+         photometric_max_abs_err=photo_err,
+         photometric_tol=DEVICE_PIPELINE['photo_tol'],
+         prefetch_stream_bit_equal=stream_equal,
+         loader_batch_devices=stream_devices,
+         flips=int(drawn['flip'].sum()),
+         photometric_masks={k: int(v.sum()) for k, v in
+                            drawn['photometric'].items()
+                            if k.startswith('do_')},
+         program_ms=program_ms, program_device_ms=program_device_ms,
+         upload_ms=upload_ms, f32_pass_mb=f32_pass_bytes / 1e6,
+         f32_pass_bound_ms=2e3 * f32_pass_bytes / HBM_BYTES_PER_S,
+         host_prefix_ms_per_image=prefix_ms,
+         host_pipeline_ms_per_image=full_ms,
+         phase_s=time.perf_counter() - start,
+         timer='program: CUDA event pair (ms) and the sleep-kernel device '
+               'time (device_ms), median of 10 after 2, on a B=8 batch '
+               'already on the card; upload: event pair over pinning and '
+               'copying the uint8 batch; host: median of 8 samples, one '
+               'thread')
+    if faults:
+        raise AssertionError(f'device_pipeline: {faults}')
+    del card, cpu, card_plain, cpu_plain, streams, img_dev, gt_dev
+    torch.cuda.empty_cache()
+
+
+def phase_profile_input(torch, kern, tf32):
+    """``python -m stc_unet_tpu_torch.tools.profile_input`` (``main(argv)``
+    in process) at ``PROFILE_INPUT``'s cut: the five input configurations
+    (host, host with the disk cache, device, device with the disk cache,
+    device with the RAM cache) through the train CLI at B=8, bf16, 2
+    epochs each, at the TF32 setting ``tf32`` (torch's defaults). Faults:
+    a device configuration's loader not a ``DeviceBatchLoader`` or a host
+    one's not a ``DataLoader``; K1, K2 and K2b not launched 4 times a
+    step. Returns the launches."""
+    from stc_unet_tpu_torch.tools import profile_input
+    start = time.perf_counter()
+    label, cudnn, matmul = tf32
+    epochs, batch = PROFILE_INPUT['epochs'], PROFILE_INPUT['batch']
+    restore = _quiet_logger()
+    faults = []
+    set_tf32(torch, cudnn, matmul)
+    try:
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(REPO, 'work_dirs')) as wd:
+            reset_counts(kern)
+            record = profile_input.main([
+                '--work-dir', wd, '--epochs', str(epochs), '--batch',
+                str(batch), '--train-imgs', str(PROFILE_INPUT['train'])])
+            torch.cuda.synchronize()
+            counts = read_counts(kern)
+    finally:
+        restore()
+        set_tf32(torch, False, False)
+    tags = [c[0] for c in profile_input.CONFIGS]
+    steps = len(tags) * epochs * PROFILE_INPUT['train'] // batch
+    want = per_call(dict(strip_pools=4 * steps, gate_add=4 * steps,
+                         gate_dots=4 * steps))
+    if counts != want:
+        faults.append(f'{steps} steps launched {counts}, want {want}')
+    for tag, device_pipeline, _ in profile_input.CONFIGS:
+        loader = 'DeviceBatchLoader' if device_pipeline else 'DataLoader'
+        if record[f'loader_{tag}'] != loader:
+            faults.append(f'{tag}: loader {record[f"loader_{tag}"]}')
+    emit('profile_input', ok=not faults, faults=faults,
+         entry='python -m stc_unet_tpu_torch.tools.profile_input '
+               '(main(argv) in process)', config=STC_CONFIG, tf32=label,
+         record=record, launches={k: v for k, v in counts.items() if v},
+         phase_s=time.perf_counter() - start,
+         timer='IterTimerHook on the host clock, means over the later '
+               'iterations of each run\'s JSON log (log interval 1: the '
+               'losses are read back each step)')
+    if faults:
+        raise AssertionError(f'profile_input: {faults}')
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_trained_path(torch, kern, tf32):
     """The trained-accuracy protocol, ``python -m
     stc_unet_tpu_torch.tools.parity_trained`` (``main(argv)`` in process):
     the JAX tool's learnable pseudo-KiTS fixture (``TRAINED_PATH``: 32
     train and 8 test 512² pairs), full-width STC-UNet trained through the
-    train CLI at the JAX protocol (Adam lr 3e-4, B=8, bf16, 15 epochs) and
-    evaluated through the test CLI, at the TF32 setting ``tf32`` (torch's
-    defaults). ``TorchProfilerHook`` traces train steps 4 and
-    5. The run saves ``epoch_12.pth`` with its optimizer, and a second run
-    resumes from it to epoch 15. Faults: mDice under 0.9; no trace file,
-    or no K2b kernel (``strip_band<..., true>``) in it; the resumed run's
-    first step's losses off the unbroken run's by more than rtol 1e-5 (the
-    same weights, batch and dropout draw), or its final parameters by more
-    than the Adam band 2·steps·lr; K1, K2 and K2b not launched 4 times a
-    step (the two runs' and the tool's step timed alone) and K1 and K2 4
-    times a test forward. Returns the launches."""
+    train CLI at the JAX protocol (Adam lr 3e-4, B=8, bf16, 15 epochs)
+    twice, as the JAX tool does: with the host pipeline, then with the
+    augmentation on the card (``data.device_pipeline=True``), each run's
+    checkpoint evaluated by the test CLI, at the TF32 setting ``tf32``
+    (torch's defaults). ``TorchProfilerHook`` traces train steps 4 and 5
+    of the device run. That run saves ``epoch_12.pth`` with its optimizer,
+    and a third run resumes from it to epoch 15. Faults: either run's
+    mDice under 0.9; the device run's loader not a ``DeviceBatchLoader`` or its batches
+    off the card, or the host run's loader not a ``DataLoader``; no trace
+    file, or no K2b kernel (``strip_band<..., true>``) in it; the resumed
+    run's first step's losses off the unbroken run's by more than rtol
+    1e-5 (the same weights, batch and dropout draw), or its final
+    parameters by more than the Adam band 2·steps·lr; K1, K2 and K2b not
+    launched 4 times a step (the three runs' and the tool's two steps
+    timed alone) and K1 and K2 4 times a test forward (the test split
+    once for each run). Returns the launches."""
     from stc_unet_tpu_torch.tools import parity_trained
     start = time.perf_counter()
     label, cudnn, matmul = tf32
@@ -1916,18 +2147,25 @@ def phase_trained_path(torch, kern, tf32):
     finally:
         restore()
         set_tf32(torch, False, False)
-    # the two runs' steps and the step timed alone on the last batch
-    steps = record['steps'] + record['resume']['steps'] + \
-        record['step_alone_steps']
-    forwards = record['test_imgs']
+    # the runs' steps and each step timed alone on its run's last batch
+    runs = record['runs']
+    steps = record['resume']['steps'] + sum(
+        r['steps'] + r['step_alone_steps'] for r in runs.values())
+    forwards = record['test_imgs'] * len(runs)
     want = per_call(dict(strip_pools=4 * (steps + forwards),
                          gate_add=4 * (steps + forwards),
                          gate_dots=4 * steps))
     if counts != want:
         faults.append(f'{steps} steps and {forwards} test forwards launched '
                       f'{counts}, want {want}')
-    if record['port']['mDice'] < 0.9:
-        faults.append(f'mDice {record["port"]["mDice"]} < 0.9')
+    for mode, run in runs.items():
+        if run['port']['mDice'] < 0.9:
+            faults.append(f'{mode} run: mDice {run["port"]["mDice"]} < 0.9')
+    if list(runs) != ['host', 'device'] or \
+            runs['host']['loader'] != 'DataLoader' or \
+            runs['device']['loader'] != 'DeviceBatchLoader' or \
+            not runs['device']['batch_device'].startswith('cuda'):
+        faults.append(f'the runs\' loaders and batches: {runs}')
     if not k2b:
         faults.append(f'no K2b kernel in the trace {trace}')
     resume = record['resume']
@@ -1939,18 +2177,23 @@ def phase_trained_path(torch, kern, tf32):
     emit('trained_path', ok=not faults, faults=faults,
          entry='python -m stc_unet_tpu_torch.tools.parity_trained '
                '(main(argv) in process)', config=STC_CONFIG,
-         tf32=label, mdice=record['port']['mDice'],
+         tf32=label, evaluated=list(runs), mdice=record['port']['mDice'],
          miou=record['port']['mIoU'],
          jax_mdice=record.get('jax', {}).get('mDice'),
-         img_per_s=record['img_per_s'], host_share=record['host_share'],
+         **{f'{k}_{mode}': runs[mode][k] for mode in runs
+            for k in ('port', 'img_per_s', 'mean_data_time_s',
+                      'data_time_first_mean_s',
+                      'data_time_after_first_mean_s', 'host_share',
+                      'step_alone_ms', 'loader', 'batch_device')},
          test_slices_per_s=record['test_slices_per_s'],
          trace_k2b_kernels=k2b, trace_events=len(names),
          record=record, launches={k: v for k, v in counts.items() if v},
          phase_s=time.perf_counter() - start,
          timer='epochs: host clock, the card synced at each start and end '
                '(data loading in); step alone: one CUDA event pair over 10 '
-               'steps on the last batch after 2; test: host clock over the '
-               'CLI')
+               'steps on the run\'s last batch after 2; data_time: '
+               'IterTimerHook, the mean over the later iterations of the '
+               'JSON log; test: host clock over the CLI')
     if faults:
         raise AssertionError(f'trained_path: {faults}')
     torch.cuda.empty_cache()
@@ -2761,9 +3004,11 @@ def main(argv=None):
             ran = phase(torch, kern, ('torch default',) + default_tf32, root)
             for name in KERNELS:
                 launches[name] += ran[name]
-    ran = phase_trained_path(torch, kern, ('torch default',) + default_tf32)
-    for name in KERNELS:
-        launches[name] += ran[name]
+    phase_device_pipeline(torch)
+    for phase in (phase_trained_path, phase_profile_input):
+        ran = phase(torch, kern, ('torch default',) + default_tf32)
+        for name in KERNELS:
+            launches[name] += ran[name]
 
     # 5. timing
     stc_rows = phase_timing(torch, model, [('off', False, False),

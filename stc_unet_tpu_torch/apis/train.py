@@ -2,7 +2,9 @@
 ``set_random_seed`` and ``train_segmentor``.
 
 ``train_segmentor`` builds the seeded train loader (each sample's draws
-from (seed, epoch, rank, position), ``datasets/builder.py``), the
+from (seed, epoch, rank, position), ``datasets/builder.py``), with
+``data.device_pipeline`` a ``DeviceBatchLoader`` around it (the
+augmentation on the card, ``datasets/device_pipeline.py``), the
 ``torch.optim`` optimizer and the lr schedule (``by_epoch`` counts the
 iterations of an epoch from the loader), the runner with its hooks, and
 with ``validate`` an ``EvalHook`` over the val split, then runs the
@@ -12,13 +14,15 @@ workflow. It trains on the card unless the caller asks for the CPU
 from __future__ import annotations
 
 import random
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
 from stc_unet_tpu_torch.core import build_lr_schedule, build_optimizer
-from stc_unet_tpu_torch.datasets import build_dataloader, build_dataset
+from stc_unet_tpu_torch.datasets import (build_dataloader, build_dataset,
+                                         wrap_loader_with_device_pipeline)
 from stc_unet_tpu_torch.engine import (EvalHook, build_runner,
                                        find_latest_checkpoint)
 from stc_unet_tpu_torch.utils.logger import get_root_logger
@@ -60,15 +64,32 @@ def _refuse_unported(cfg, distributed):
         raise NotImplementedError(
             'training on more than one GPU (DDP with SyncBatchNorm) is not '
             'ported yet (ROADMAP.md, Slice C item 14)')
-    if cfg.data.get('device_pipeline'):
-        raise NotImplementedError(
-            'data.device_pipeline (augmentation on the card, '
-            'datasets/device_pipeline.py) is not ported yet (ROADMAP.md §1, '
-            'item 4)')
     if cfg.get('remat'):
         raise NotImplementedError(
             'remat is not ported yet (ROADMAP.md §1, Item R: the recomputed '
             'forward would update the BN running stats twice)')
+
+
+def _device_pipeline(cfg, data_loaders, datasets, seed, device, logger):
+    """Wrap each loader in a ``DeviceBatchLoader`` on ``device``
+    (``data.device_pipeline_size`` the static host size,
+    ``data.device_pipeline_prefetch`` its batches in flight, default 2).
+    A pipeline the device program cannot express warns and keeps its
+    host loader, as in the JAX package; a failure of the program itself
+    raises."""
+    for i, (loader, ds) in enumerate(zip(data_loaders, datasets)):
+        try:
+            data_loaders[i] = wrap_loader_with_device_pipeline(
+                loader, ds, cfg.data.train['pipeline'],
+                host_size=cfg.data.get('device_pipeline_size'), seed=seed,
+                prefetch=cfg.data.get('device_pipeline_prefetch', 2),
+                device=device)
+            logger.info('device_pipeline: augmentation on %s for loader %d',
+                        device, i)
+        except (ValueError, KeyError) as e:
+            warnings.warn(f'device_pipeline requested but the train '
+                          f'pipeline is not device-expressible ({e}); '
+                          'falling back to the host pipeline')
 
 
 def train_segmentor(model, dataset, cfg, distributed=False, validate=False,
@@ -86,6 +107,8 @@ def train_segmentor(model, dataset, cfg, distributed=False, validate=False,
                          cfg.data.workers_per_gpu, num_gpus=1, dist=False,
                          seed=seed, drop_last=False)
         for ds in dataset]
+    if cfg.data.get('device_pipeline'):
+        _device_pipeline(cfg, data_loaders, dataset, seed, device, logger)
 
     model = model.to(device, memory_format=torch.channels_last)
     runner_cfg = dict(cfg.runner) if cfg.get('runner') else dict(

@@ -5,28 +5,36 @@ train CLI and evaluated through its test CLI.
     python -m stc_unet_tpu_torch.tools.parity_trained [--epochs 15]
         [--batch 8] [--size 512] [--train-imgs 32] [--test-imgs 8]
         [--work-dir D] [--device cuda|cpu] [--out F.json]
-        [--resume-span K] [--profile START NUM]
+        [--pipeline both|host|device] [--resume-span K]
+        [--profile START NUM]
 
 It writes the JAX tool's learnable pseudo-KiTS fixture (a bright
 elliptical blob on a dark noisy background, the label the blob; seed 0,
-the same draws) with the port's PNG writer, trains
+the same draws) with the port's PNG writer and trains
 ``my_config/STC-UNet.py`` at the JAX protocol (Adam lr 3e-4, batch 8,
 ``bf16 = True``, 2 loader threads, no validation) with
-``python -m stc_unet_tpu_torch.tools.train``, and evaluates the last
-checkpoint with ``python -m stc_unet_tpu_torch.tools.test --eval mIoU
-mDice``. It prints one JSON record: the port's mIoU and mDice beside the
-JAX package's from ``PARITY_KITS_TRAINED.json``, the epochs' seconds and
-images/s (the card synced at each epoch's start and end), each step's
-losses, the test CLI's seconds and slices/s, and on the card the step
-alone on one batch and the host's share of the epochs.
+``python -m stc_unet_tpu_torch.tools.train`` twice, as the JAX tool
+does: with the host pipeline, then with ``data.device_pipeline=True``
+(the augmentation on the device, ``datasets/device_pipeline.py``);
+``--pipeline host`` or ``device`` runs one of them. It evaluates each
+run's checkpoint with ``python -m stc_unet_tpu_torch.tools.test --eval
+mIoU mDice``. It prints one JSON record: the last run's mIoU and mDice
+(the device run's, the one the JAX tool evaluates) beside the JAX
+package's from ``PARITY_KITS_TRAINED.json``; for each run (``runs``) its
+mIoU and mDice, its epochs' seconds and images/s (the card synced at
+each epoch's start and end), its mean ``data_time`` over the later
+iterations (the JAX tool's ``mean_data_time``) and over the epochs'
+first batches and the rest, its loader's type and where its batches
+were, the test CLI's seconds and slices/s, and on the card the step
+alone on its last batch and the host's share of the epochs; the last
+run's losses.
 
-``--resume-span K`` also saves ``epoch_{E-K}.pth`` with its optimizer,
-resumes a second run from it to epoch E, and records how far that run's
-first step's losses and its final weights are from the unbroken run's.
-``--profile START NUM`` traces NUM train steps from step START with the
-port's ``TorchProfilerHook`` (a Chrome trace under the work dir's
-``profile``). The JAX tool's comparison with the device pipeline
-(``data.device_pipeline``) is not ported (ROADMAP.md §1, item 4).
+``--resume-span K`` also saves ``epoch_{E-K}.pth`` of the last run with
+its optimizer, resumes another run from it to epoch E, and records how
+far that run's first step's losses and its final weights are from the
+unbroken run's. ``--profile START NUM`` traces NUM train steps of the
+last run from step START with the port's ``TorchProfilerHook`` (a
+Chrome trace under its work dir's ``profile``).
 """
 from __future__ import annotations
 
@@ -71,10 +79,11 @@ def build_learnable_kits(root: str, n_train: int, n_test: int, size: int):
 
 
 def write_cfg(path: str, data_root: str, epochs: int, batch: int,
-              save_every: int, save_optimizer: bool, profile=None):
-    """The JAX tool's config, without its device pipeline; a checkpoint
-    every ``save_every`` epochs and at the last; the recording hook, and
-    a ``TorchProfilerHook`` when ``profile`` is (start, num)."""
+              save_every: int, save_optimizer: bool, profile=None,
+              device_pipeline: bool = False):
+    """The JAX tool's config (``data.device_pipeline`` as given); a
+    checkpoint every ``save_every`` epochs and at the last; the recording
+    hook, and a ``TorchProfilerHook`` when ``profile`` is (start, num)."""
     hooks = [dict(type='ParityTrainedRecord', priority='HIGHEST')]
     if profile:
         hooks.append(dict(type='TorchProfilerHook', start_iter=profile[0],
@@ -82,6 +91,7 @@ def write_cfg(path: str, data_root: str, epochs: int, batch: int,
     cfg = f'''
 _base_ = [{CONFIG!r}]
 data = dict(samples_per_gpu={batch}, workers_per_gpu=2,
+            device_pipeline={device_pipeline},
             train=dict(data_root={data_root!r}),
             val=dict(data_root={data_root!r}),
             test=dict(data_root={data_root!r}))
@@ -102,13 +112,15 @@ bf16 = True
 class ParityTrainedRecord(Hook):
     """Each train epoch's seconds (the card synced at its start and end),
     each step's log values (left on the device until the run ends) and
-    the last batch on the device; the records of every run of the process
-    are kept in ``runs``."""
+    ``data_time`` with its place in the epoch, and the last batch on the
+    device; the records of every run of the process are kept in
+    ``runs``."""
 
     runs = []
 
     def before_run(self, runner):
-        self.runs.append(dict(epoch_s=[], logs=[], first_iter=runner.iter))
+        self.runs.append(dict(epoch_s=[], logs=[], data_time=[],
+                              first_iter=runner.iter))
 
     def _sync(self, runner):
         if runner.device.type == 'cuda':
@@ -120,6 +132,9 @@ class ParityTrainedRecord(Hook):
 
     def after_train_iter(self, runner):
         self.runs[-1]['logs'].append(runner.outputs['log_vars'])
+        self.runs[-1]['data_time'].append(
+            (runner.inner_iter,
+             runner.log_buffer.val_history['data_time'][-1]))
         self.runs[-1]['batch'] = (runner.data_batch['img'],
                                   runner.data_batch['gt_semantic_seg'])
 
@@ -141,6 +156,34 @@ def _train(argv, device):
     return runner, ParityTrainedRecord.runs[-1], time.perf_counter() - t0
 
 
+def mean_log_value(log_dir: str, key: str) -> float:
+    """The mean of ``key`` (``'data_time'``, ``'time'``) in the newest
+    ``.log.json`` in ``log_dir`` over the later train iterations, from the
+    larger of 2 and a quarter of them on (the JAX tool's
+    ``mean_data_time``)."""
+    logs = sorted(f for f in os.listdir(log_dir) if f.endswith('.log.json'))
+    if not logs:
+        raise RuntimeError(f'no .log.json in {log_dir}')
+    values = []
+    with open(osp.join(log_dir, logs[-1])) as f:
+        for line in f:
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if rec.get('mode') == 'train' and key in rec:
+                values.append(float(rec[key]))
+    tail = values[max(2, len(values) // 4):]
+    if not tail:
+        raise RuntimeError(f'no train {key} records in {logs[-1]} past '
+                           f'the first {max(2, len(values) // 4)}')
+    return sum(tail) / len(tail)
+
+
+def _mean(values):
+    return sum(values) / len(values) if values else None
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--size', type=int, default=512)
@@ -152,6 +195,10 @@ def parse_args(argv=None):
                                                    'parity_trained'))
     ap.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
     ap.add_argument('--out', help='write the record here too')
+    ap.add_argument('--pipeline', default='both',
+                    choices=['both', 'host', 'device'],
+                    help='train with the host pipeline, the device one, or '
+                         'both (host first)')
     ap.add_argument('--resume-span', type=int, default=0,
                     help='resume a second run for the last K epochs')
     ap.add_argument('--profile', type=int, nargs=2, metavar=('START', 'NUM'),
@@ -166,6 +213,8 @@ def main(argv=None):
     epochs, span = args.epochs, args.resume_span
     if not 0 <= span < epochs:
         raise ValueError(f'--resume-span {span}: 0 to {epochs - 1}')
+    modes = ['host', 'device'] if args.pipeline == 'both' else \
+        [args.pipeline]
     work = osp.abspath(args.work_dir)
     data_root = osp.join(work, 'ds')
     t0 = time.perf_counter()
@@ -173,34 +222,44 @@ def main(argv=None):
                          args.size)
     record = dict(size=args.size, epochs=epochs, batch=args.batch,
                   train_imgs=args.train_imgs, test_imgs=args.test_imgs,
-                  device=args.device, fixture_s=time.perf_counter() - t0)
-    cfg_path = osp.join(work, 'parity_trained.py')
-    write_cfg(cfg_path, data_root, epochs, args.batch,
-              save_every=epochs - span if span else epochs,
-              save_optimizer=bool(span), profile=args.profile)
-    wd = osp.join(work, 'train')
-    runner, run, record['train_s'] = _train(
-        [cfg_path, '--work-dir', wd, '--no-validate', '--seed', '0'],
-        args.device)
-    steps = len(run['logs'])
-    record.update(steps=steps, epoch_s=run['epoch_s'],
-                  img_per_s=steps * args.batch / sum(run['epoch_s']),
-                  losses=run['losses'])
-    for hook in runner.hooks:
-        if type(hook).__name__ == 'TorchProfilerHook':
-            record['profile_trace'] = hook.trace_file
-
-    json_dir = osp.join(work, 'metrics')
-    t0 = time.perf_counter()
-    test_cli.main([f'{data_root}/test/images', cfg_path,
-                   osp.join(wd, 'latest.pth'), '--eval', 'mIoU', 'mDice',
-                   '--work-dir', json_dir, '--device', args.device])
-    record['test_s'] = time.perf_counter() - t0
-    record['test_slices_per_s'] = args.test_imgs / record['test_s']
-    newest = sorted(f for f in os.listdir(json_dir) if f.endswith('.json'))
-    with open(osp.join(json_dir, newest[-1])) as f:
-        metric = json.load(f)['metric']
-    record['port'] = {k: float(metric[k]) for k in ('mIoU', 'mDice')}
+                  device=args.device, pipelines=modes,
+                  fixture_s=time.perf_counter() - t0, runs={})
+    for mode in modes:
+        last = mode == modes[-1]
+        cfg_path = osp.join(work, f'cfg_{mode}.py')
+        write_cfg(cfg_path, data_root, epochs, args.batch,
+                  save_every=epochs - span if span and last else epochs,
+                  save_optimizer=bool(span) and last,
+                  profile=args.profile if last else None,
+                  device_pipeline=mode == 'device')
+        wd = osp.join(work, f'wd_{mode}')
+        runner, run, train_s = _train(
+            [cfg_path, '--work-dir', wd, '--no-validate', '--seed', '0'],
+            args.device)
+        steps = len(run['logs'])
+        record['runs'][mode] = dict(
+            train_s=train_s, steps=steps, epoch_s=run['epoch_s'],
+            img_per_s=steps * args.batch / sum(run['epoch_s']),
+            mean_data_time_s=mean_log_value(wd, 'data_time'),
+            data_time_after_first_mean_s=_mean(
+                [t for i, t in run['data_time'] if i]),
+            data_time_first_mean_s=_mean(
+                [t for i, t in run['data_time'] if not i]),
+            loader=type(runner.data_loader).__name__,
+            batch_device=str(run['batch'][0].device),
+            checkpoint=osp.join(wd, 'latest.pth'),
+            **_evaluate(test_cli, data_root, cfg_path,
+                        osp.join(wd, 'latest.pth'),
+                        osp.join(work, f'metrics_{mode}'), args))
+        if not last:
+            if runner.device.type == 'cuda':
+                record['runs'][mode].update(_step_alone(runner, run))
+            del runner
+            continue
+        record.update(record['runs'][mode], losses=run['losses'])
+        for hook in runner.hooks:
+            if type(hook).__name__ == 'TorchProfilerHook':
+                record['profile_trace'] = hook.trace_file
     if osp.isfile(JAX_RECORD):
         with open(JAX_RECORD) as f:
             jax_record = json.load(f)
@@ -211,13 +270,30 @@ def main(argv=None):
         record['resume'] = _resume_check(runner, run, cfg_path, wd, work,
                                          epochs - span, args)
     if runner.device.type == 'cuda':
-        record.update(_step_alone(runner, run))
+        alone = _step_alone(runner, run)
+        record.update(alone)
+        record['runs'][modes[-1]].update(alone)
     del runner
     print(json.dumps(record), flush=True)
     if args.out:
         with open(args.out, 'w') as f:
             json.dump(record, f, indent=2)
     return record
+
+
+def _evaluate(test_cli, data_root, cfg_path, checkpoint, json_dir, args):
+    """``checkpoint`` through the test CLI on the test split: the port's
+    mIoU and mDice, the CLI's seconds and slices/s."""
+    t0 = time.perf_counter()
+    test_cli.main([f'{data_root}/test/images', cfg_path, checkpoint,
+                   '--eval', 'mIoU', 'mDice', '--work-dir', json_dir,
+                   '--device', args.device])
+    test_s = time.perf_counter() - t0
+    newest = sorted(f for f in os.listdir(json_dir) if f.endswith('.json'))
+    with open(osp.join(json_dir, newest[-1])) as f:
+        metric = json.load(f)['metric']
+    return dict(port={k: float(metric[k]) for k in ('mIoU', 'mDice')},
+                test_s=test_s, test_slices_per_s=args.test_imgs / test_s)
 
 
 def _step_alone(runner, run, iters=10):

@@ -323,6 +323,10 @@ def test_port_imports_no_cv2_pillow_or_msgpack():
                    os.walk(osp.join(REPO, 'stc_unet_tpu_torch'))
                    for f in fs if f.endswith('.py'))
     files.append(osp.join(REPO, 'chip_smoke.py'))
+    # the train augmentation on the card and the tools that drive it
+    assert {osp.join(REPO, 'stc_unet_tpu_torch', *rel) for rel in (
+        ('datasets', 'device_pipeline.py'), ('tools', 'parity_trained.py'),
+        ('tools', 'profile_input.py'))} <= set(files)
     bad = []
     for path in files:
         with open(path) as f:

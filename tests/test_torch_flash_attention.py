@@ -4,7 +4,8 @@ STC transformer's flash path, against JAX on the CPU.
 The JAX side is the library's Pallas flash attention
 (``jax.experimental.pallas.ops.tpu.flash_attention``), run in interpret
 mode inside ``pltpu.force_tpu_interpret_mode()`` (on the CPU it refuses to
-run otherwise). Its default blocks are 128, so it takes only lengths that
+run otherwise); the attention core's reference comes from a process of
+its own (``_LIBRARY``). Its default blocks are 128, so it takes only lengths that
 are multiples of 128; at other lengths the port's plain versions are held
 to an einsum softmax in JAX and its ``jax.vjp``. A flax model that
 holds the flash call is initialised outside the interpret context (the
@@ -21,8 +22,11 @@ atol 2^-5), as ``test_mha_dtype_flow_matches_jax``.
 """
 import functools
 import math
+import os
 import os.path as osp
+import subprocess
 import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +34,6 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
-from jax.experimental.pallas.ops.tpu import flash_attention as jfa
 
 from stc_unet_tpu.models.backbones.unet_backbone import \
     MultiheadAttention as JMHA
@@ -66,11 +69,31 @@ def _close(got, want, rtol=1e-5):
                                atol=rtol * np.abs(want).max())
 
 
-@functools.lru_cache(maxsize=None)
-def _library(shape):
-    """The library's o, (l, m) residuals and jax.vjp gradients at shape,
-    in interpret mode."""
-    q, k, v, do = (jnp.asarray(a) for a in _inputs(shape))
+SHAPES = [(1, 2, 128, 8), (2, 2, 256, 32), (1, 2, 128, 256)]
+
+# The library's side of SHAPES, computed in a Python process of its own
+# (argv: a directory holding in.npz; it writes out.npz there). In a
+# pytest-xdist worker this file shares its process with other test files,
+# and the library's interpret mode depends on state they can leave: its
+# module-level simulated memory, JAX's global config and the persistent
+# compilation cache (shared by the workers, holding programs compiled on
+# other hosts). A fresh process without the cache sees none of it.
+_LIBRARY = r"""
+import math
+import sys
+
+import numpy as np
+import jax
+jax.config.update('jax_platforms', 'cpu')
+from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu import flash_attention as jfa
+
+inputs = np.load(sys.argv[1] + '/in.npz')
+out = {}
+for i in range(int(inputs['count'])):
+    q, k, v, do = (jax.numpy.asarray(inputs[f'{i}_{n}'])
+                   for n in ('q', 'k', 'v', 'do'))
+    shape = q.shape
     scale = 1.0 / math.sqrt(shape[-1])
     with pltpu.force_tpu_interpret_mode():
         o, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(
@@ -80,31 +103,85 @@ def _library(shape):
             q, k, v, None, None, True, False, scale,
             jfa.BlockSizes.get_default(*shape[:3], shape[2], shape[3]),
             False)
-    return (np.asarray(o), np.asarray(l), np.asarray(m),
-            [np.asarray(g) for g in grads])
+    for name, x in zip(('o', 'l', 'm', 'dq', 'dk', 'dv'),
+                       (o, l, m) + tuple(grads)):
+        out[f'{i}_{name}'] = np.asarray(x)
+np.savez(sys.argv[1] + '/out.npz', **out)
+"""
 
 
-SHAPES = [(1, 2, 128, 8), (2, 2, 256, 32), (1, 2, 128, 256)]
+@functools.lru_cache(maxsize=None)
+def _libraries():
+    """{shape: the library's o, (l, m) residuals and jax.vjp gradients}
+    for every shape of SHAPES, in interpret mode, from ``_LIBRARY`` run
+    in its own process without the persistent compilation cache."""
+    with tempfile.TemporaryDirectory() as d:
+        arrays = dict(count=len(SHAPES))
+        for i, shape in enumerate(SHAPES):
+            arrays.update({f'{i}_{n}': a for n, a in zip(
+                ('q', 'k', 'v', 'do'), _inputs(shape))})
+        np.savez(osp.join(d, 'in.npz'), **arrays)
+        env = dict(os.environ, JAX_PLATFORMS='cpu',
+                   JAX_ENABLE_COMPILATION_CACHE='false')
+        env.pop('JAX_COMPILATION_CACHE_DIR', None)
+        proc = subprocess.run([sys.executable, '-c', _LIBRARY, d], env=env,
+                              capture_output=True, text=True, timeout=900)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        out = dict(np.load(osp.join(d, 'out.npz')))
+    return {shape: (out[f'{i}_o'], out[f'{i}_l'], out[f'{i}_m'],
+                    [out[f'{i}_{n}'] for n in ('dq', 'dk', 'dv')])
+            for i, shape in enumerate(SHAPES)}
 
 
-@pytest.mark.parametrize('shape', SHAPES)
-def test_flash_attention_matches_the_library(shape):
-    """The port's flash_attention and its autograd gradients against the
-    library's flash_attention and jax.vjp, in interpret mode; lse against
-    the library's residuals, m + log l."""
-    o_ref, l_ref, m_ref, grads_ref = _library(shape)
+def _library(shape):
+    """The library's o, (l, m) residuals and jax.vjp gradients at shape
+    (one of SHAPES), in interpret mode."""
+    return _libraries()[shape]
+
+
+def _port(shape):
+    """The port's o, its autograd gradients of q, k, v and lse at shape."""
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(shape))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     scale = 1.0 / math.sqrt(shape[-1])
     o = flash_attention(*leaves, sm_scale=scale)
     o.backward(do)
     assert o.shape == shape and o.dtype == torch.float32
-    _close(o.detach(), o_ref)
-    for leaf, g in zip(leaves, grads_ref):
-        _close(leaf.grad, g)
     _, lse = flash_attention_forward(q, k, v, scale)
-    np.testing.assert_allclose(lse.numpy(), m_ref + np.log(l_ref),
-                               rtol=1e-5, atol=1e-5)
+    return [o.detach().numpy()] + [t.grad.numpy() for t in leaves] + \
+        [lse.numpy()]
+
+
+def _which_side_moved(shape, library, port):
+    """Both sides computed again, the library in a fresh process: whether
+    each rerun is bit-equal to the outputs that failed, so a failure says
+    which side moved."""
+    again = _libraries.__wrapped__()[shape]
+    lib = [np.array_equal(a, b) for a, b in zip(
+        library[:3] + tuple(library[3]), again[:3] + tuple(again[3]))]
+    ours = [np.array_equal(a, b) for a, b in zip(port, _port(shape))]
+    return (f'library rerun in a fresh process bit-equal (o, l, m, dq, dk, '
+            f'dv): {lib}; port rerun in this process bit-equal (o, dq, dk, '
+            f'dv, lse): {ours}')
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_flash_attention_matches_the_library(shape):
+    """The port's flash_attention and its autograd gradients against the
+    library's flash_attention and jax.vjp, in interpret mode; lse against
+    the library's residuals, m + log l. A failure also says which side a
+    rerun reproduces."""
+    library = _library(shape)
+    o_ref, l_ref, m_ref, grads_ref = library
+    port = _port(shape)
+    try:
+        for got, want in zip(port[:4], [o_ref] + list(grads_ref)):
+            _close(got, want)
+        np.testing.assert_allclose(port[4], m_ref + np.log(l_ref),
+                                   rtol=1e-5, atol=1e-5)
+    except AssertionError as e:
+        raise AssertionError(
+            f'{e}\n{_which_side_moved(shape, library, port)}') from e
 
 
 @pytest.mark.parametrize('shape', SHAPES[:2])

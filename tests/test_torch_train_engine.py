@@ -48,7 +48,8 @@ from stc_unet_tpu.models import build_segmentor as jax_build
 from stc_unet_tpu.utils import Config as JConfig
 from stc_unet_tpu_torch.apis import init_segmentor, single_gpu_test
 from stc_unet_tpu_torch.apis import train_segmentor
-from stc_unet_tpu_torch.datasets import (build_dataloader, build_dataset,
+from stc_unet_tpu_torch.datasets import (DeviceBatchLoader,
+                                         build_dataloader, build_dataset,
                                          sample_seed)
 from stc_unet_tpu_torch.engine import (HOOKS, EpochBasedRunner, Hook,
                                        LogBuffer, TensorboardLoggerHook,
@@ -449,10 +450,16 @@ def test_what_is_not_ported_raises(roots, tmp_path):
         with pytest.raises(NotImplementedError, match=match):
             train_segmentor(model, ds, Config(dict(cfg.to_dict(), **extra)),
                             device='cpu', **kw)
+    # data.device_pipeline is ported (item 4): the loader is wrapped
     dp = Config(cfg.to_dict())
     dp.data.device_pipeline = True
-    with pytest.raises(NotImplementedError, match='item 4'):
-        train_segmentor(model, ds, dp, device='cpu')
+    dp.runner.max_epochs = 1
+    dp.custom_hooks = []
+    dp.work_dir = str(tmp_path / 'device_pipeline')
+    runner = train_segmentor(model, build_dataset(dp.data.train), dp,
+                             device='cpu')
+    assert isinstance(runner.data_loader, DeviceBatchLoader)
+    assert runner.iter == len(runner.data_loader)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA'):
             train_segmentor(model, ds, cfg)
