@@ -118,7 +118,14 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
     on its 128² crop to the CPU (TF32 off), ``latest.pth``'s logits and
     mDice to the trained model's and the EvalHook's, checks K1, K2 and
     K2b's launches, and times the epochs beside the step alone; then
-    (``test_cli``) runs the test CLI on its split and checkpoint;
+    (``test_cli``) runs the test CLI on its split and checkpoint; then
+    (``data_parallel``) runs two ranks that share the card over gloo:
+    a full-width bf16 train step at 4 images a rank against one process
+    on the global 8, sharded slide and whole inference against
+    unsharded, ``multi_gpu_test`` against ``single_gpu_test``, and the
+    train CLI under ``python -m torch.distributed.run`` with two gloo
+    ranks and with one NCCL rank, each group of processes under a
+    deadline;
 12. runs the train augmentation on the card (``device_pipeline``): the
     flagship's host prefix (decode, Resize to 600², uint8 padding) on 24
     learnable 512² pairs, the device program (crop, flip, photometric
@@ -258,6 +265,12 @@ TEST_PATH = dict(images=64, size=512, seed=0, cpu_images=4)
 # epochs, validating and checkpointing after each; its first step is held
 # to the CPU on the first batch's top-left 128² (full width on the CPU)
 TRAIN_PATH = dict(train=32, test=8, size=512, seed=1, epochs=2, crop=128)
+# data parallelism on one card: two gloo ranks sharing cuda:0, 4 images a
+# rank (the config's samples_per_gpu), slide B=14 and whole B=8 sharded,
+# test_path's 64 slices through multi_gpu_test; each group of processes
+# killed after ``deadline`` seconds; ``timed`` steps after the first
+DATA_PARALLEL = dict(world=2, batch=4, size=512, slide=14, whole=8, test=64,
+                     seed=5, timed=2, deadline=300)
 # the test CLI's .ckpt resume: a tiny STC-UNet checkpoint of the JAX package
 # with Adam's state (tests/fixtures/make_resume_ckpt.py)
 RESUME_CKPT = 'tests/fixtures/stc_unet_tiny_adam.ckpt'
@@ -304,6 +317,18 @@ MAX_ITERS = 1000
 # a one-ulp nudge of the inputs moves the tensor less.
 GRAD_FLOOR = 1e-5
 NUDGE_SEEDS = tuple(range(7, 15))
+
+
+def kernel_functions():
+    """Every kernel's wrapper by name (each counts its launches)."""
+    from stc_unet_tpu_torch.ops import coordatt_fused as cf
+    from stc_unet_tpu_torch.ops import dual_pools as dp
+    from stc_unet_tpu_torch.ops import window_attention as wa
+    fa = importlib.import_module('stc_unet_tpu_torch.ops.flash_attention')
+    modules = dict(**dict.fromkeys(CF_KERNELS, cf),
+                   **dict.fromkeys(WA_KERNELS, wa),
+                   **dict.fromkeys(FA_KERNELS, fa), dual_pools=dp)
+    return {name: getattr(modules[name], name) for name in KERNELS}
 
 
 def emit(phase, **fields):
@@ -1101,14 +1126,14 @@ def phase_tf32_check(torch, model, cpu_model_fn, tf32):
         raise AssertionError(f'tf32_check: {faults}')
 
 
-def write_split(root, n, size, seed, split='test'):
+def write_split(root, n, size, seed, split='test', check=True):
     """``n`` pseudo-KiTS pairs of ``size``² in ``root``/``split``/{images,labels}
     with the port's PNG writer (``tools/parity_eval.py:36-51``'s data: RGB
     noise, a 0/1 disc label). Image rows cycle through the filters 0-4,
-    label rows too, written by 8 threads. Checks ``png.decode(png.encode(
-    x, f)) == x`` for each filter, on the first image and label, and that
-    the C unfilter gives the plain version's bytes on every file written.
-    Returns the record."""
+    label rows too, written by 8 threads. With ``check``, checks
+    ``png.decode(png.encode(x, f)) == x`` for each filter, on the first
+    image and label, and that the C unfilter gives the plain version's
+    bytes on every file written. Returns the record."""
     import numpy as np
     from stc_unet_tpu_torch.utils import png
     from concurrent.futures import ThreadPoolExecutor
@@ -1123,7 +1148,7 @@ def write_split(root, n, size, seed, split='test'):
         cy, cx, r = rng.randint(size // 4, 3 * size // 4, 2).tolist() + \
             [rng.randint(size // 8, size // 3)]
         ann = (((yy - cy) ** 2 + (xx - cx) ** 2) < r * r).astype(np.uint8)
-        if i == 0:
+        if i == 0 and check:
             for f in range(5):
                 for x in (img, ann):
                     if not np.array_equal(png.decode(png.encode(x, f))[0], x):
@@ -1137,6 +1162,8 @@ def write_split(root, n, size, seed, split='test'):
             pass
     write_s = time.perf_counter() - t0
     paths = [path for path, _ in jobs]
+    if not check:
+        return dict(files=len(paths), size=size, write_s=write_s)
     t0 = time.perf_counter()
     for path in paths:
         with open(path, 'rb') as f:
@@ -1611,6 +1638,473 @@ def phase_train_path(torch, kern, tf32, root):
     del runner, record
     torch.cuda.empty_cache()
     return counts
+
+
+def run_group(cmds, deadline, logdir, env):
+    """Run the commands at once, each in a session of its own with its
+    output in ``logdir``/<i>.log, until all exit 0. The first that exits
+    otherwise, or the ``deadline`` (seconds), kills every one of them
+    (their process groups: a launcher's ranks too) and raises with the
+    ends of their logs."""
+    import signal
+    procs, logs = [], []
+    try:
+        for i, cmd in enumerate(cmds):
+            logs.append(open(os.path.join(logdir, f'{i}.log'), 'w'))
+            procs.append(subprocess.Popen(
+                cmd, stdin=subprocess.DEVNULL, stdout=logs[-1],
+                stderr=subprocess.STDOUT, cwd=REPO, env=env,
+                start_new_session=True))
+        end = time.monotonic() + deadline
+        while True:
+            codes = [p.poll() for p in procs]
+            if all(c == 0 for c in codes):
+                return
+            if any(c not in (None, 0) for c in codes) or \
+                    time.monotonic() > end:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        for f in logs:
+            f.close()
+    tails = []
+    for i in range(len(cmds)):
+        with open(os.path.join(logdir, f'{i}.log')) as f:
+            tails.append(f'--- {cmds[i][:6]}\n{f.read()[-3000:]}')
+    raise AssertionError(f'exit codes {codes} (deadline {deadline} s)\n' +
+                         '\n'.join(tails))
+
+
+def dp_inputs(torch):
+    """The data-parallel phase's inputs, made alike in every process: the
+    global train batch (``world·batch`` 512² images, f32, labels with an
+    ignored band) and the slide batch, whose first ``whole`` images are
+    the whole-mode batch."""
+    dp = DATA_PARALLEL
+    g = torch.Generator().manual_seed(dp['seed'])
+    size = dp['size']
+    img = torch.rand((dp['world'] * dp['batch'], size, size, 3), generator=g)
+    gt = (img.mean(-1) > 0.5).long()
+    gt[:, :3] = 255
+    slide = torch.rand((dp['slide'], size, size, 3), generator=g)
+    return img, gt, slide
+
+
+def dp_timed_steps(torch, step, img, gt):
+    """Host-clock ms of ``DATA_PARALLEL['timed']`` steps, each synced."""
+    times = []
+    for _ in range(DATA_PARALLEL['timed']):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(img, gt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def dp_rank(workdir, rank, world):
+    """One rank of ``phase_data_parallel`` (run as ``python -c 'import
+    chip_smoke; chip_smoke.dp_rank(...)'``): joins the gloo group of the
+    file store in ``workdir`` on ``cuda:0``, which the ranks share, and
+    runs (a) one data-parallel bf16 train step of full-width STC-UNet on
+    its ``batch`` rows from the saved weights, then times two more and a
+    gloo all-reduce of a buffer of the gradients' size; (b) sharded slide
+    and whole inference, f32, TF32 off; (c) ``multi_gpu_test`` on the
+    split. K1, K2 and K2b are counted for each. Saves its results to
+    ``workdir``/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from stc_unet_tpu_torch.apis import multi_gpu_test
+    from stc_unet_tpu_torch.datasets import build_dataloader, build_dataset
+    from stc_unet_tpu_torch.models import build_segmentor
+    from stc_unet_tpu_torch.utils import Config, default_data_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group('gloo', init_method=f'file://{workdir}/store',
+                            rank=rank, world_size=world)
+    kern = kernel_functions()
+    set_tf32(torch, False, False)
+    dp = DATA_PARALLEL
+    cfg = Config.fromfile(os.path.join(workdir, 'cfg.py'))
+    state = torch.load(os.path.join(workdir, 'state.pt'))
+    model = build_segmentor(cfg.model, test_cfg=cfg.get('test_cfg'))
+    model.load_state_dict(state)
+    model = model.to('cuda', memory_format=torch.channels_last)
+    mesh = default_data_mesh()
+    img, gt, slide = dp_inputs(torch)
+    rows = slice(rank * dp['batch'], (rank + 1) * dp['batch'])
+    img, gt = img[rows].cuda(), gt[rows].cuda()
+    out = dict(rank=rank)
+    # (a) the train step
+    step = train_step_for(torch, model, torch.bfloat16, mesh)
+    reset_counts(kern)
+    logs = step(img, gt)
+    torch.cuda.synchronize()
+    out['step_counts'] = read_counts(kern)
+    out['logs'] = {k: v.item() for k, v in logs.items()}
+    out['grads'] = {k: p.grad.float().cpu() for k, p in
+                    model.named_parameters()}
+    out['state1'] = {k: v.cpu().clone() for k, v in
+                     model.state_dict().items()}
+    out['step_ms'] = dp_timed_steps(torch, step, img, gt)
+    out['state3'] = {k: v.cpu().clone() for k, v in
+                     model.state_dict().items()}
+    del step
+    numel = sum(p.numel() for p in model.parameters())
+    flat = torch.zeros(numel, device=img.device)
+    out['allreduce_ms'] = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        out['allreduce_ms'].append((time.perf_counter() - t0) * 1e3)
+    out['grad_elements'] = numel
+    del flat
+    torch.cuda.empty_cache()
+    # (b) sharded inference from the saved weights
+    model.load_state_dict(state)
+    model.eval()
+    model.set_mesh(mesh)
+    model.test_cfg = dict(SLIDE)
+    reset_counts(kern)
+    out['slide'] = model.slide_inference(slide.cuda(), None,
+                                         False).float().cpu()
+    out['whole'] = model.encode_decode(
+        slide[:dp['whole']].cuda()).float().cpu()
+    torch.cuda.synchronize()
+    out['infer_counts'] = read_counts(kern)
+    model.set_mesh(None)
+    # (c) multi_gpu_test over the ranks' shards of the split
+    model.test_cfg = dict(mode='whole')
+    test = cfg.data.test
+    test.data_root, test.test_mode = os.path.join(workdir, 'split'), True
+    dataset = build_dataset(test)
+    loader = build_dataloader(dataset, 4, 2, shuffle=False)
+    reset_counts(kern)
+    out['pre_eval'] = multi_gpu_test(model, loader, pre_eval=True)
+    torch.cuda.synchronize()
+    out['test_counts'] = read_counts(kern)
+    out['test_forwards'] = len(loader)
+    out['shard'] = loader.sampler.unpadded().tolist()
+    out['metrics'] = dataset.evaluate(out['pre_eval'], ['mIoU', 'mDice'],
+                                      logger='silent')
+    torch.save(out, os.path.join(workdir, f'rank{rank}.pt'))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dp_cli(root, work, nproc, backend, stems=None):
+    """The train CLI's argv under ``python -m torch.distributed.run`` with
+    ``nproc`` ranks: full-width STC-UNet, the train path's split in
+    ``root`` (its first ``stems`` train pairs if given, through a split
+    file), one epoch at the config's 4 images a rank, validating through
+    ``DistEvalHook``, ``dist_params.backend`` as given."""
+    options = [f'data.train.data_root={root}', f'data.val.data_root={root}',
+               'runner.max_epochs=1', 'checkpoint_config.interval=1',
+               "log_config.hooks=[{'type': 'TextLoggerHook'}]",
+               'log_config.interval=1', f'dist_params.backend={backend}']
+    if stems is not None:
+        split = work + '_split.txt'
+        with open(split, 'w') as f:
+            f.write(''.join(f'case_{i:05d}\n' for i in range(stems)))
+        options.append(f'data.train.split={split}')
+    return [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+            '--nproc_per_node', str(nproc), '-m',
+            'stc_unet_tpu_torch.tools.train',
+            os.path.join(REPO, STC_CONFIG), '--launcher', 'pytorch',
+            '--work-dir', work, '--seed', '0', '--cfg-options'] + options
+
+
+def dp_cli_check(work, ranks, steps_per_rank, launcher_log):
+    """The faults of a train CLI run under the launcher, and the mDice
+    of its validation: rank 0 alone wrote one epoch's checkpoint,
+    ``latest.pth``, the config, one log and one JSON log; its log says it
+    trained distributed, the last step's count and the evaluation's
+    summary (whose Dice is the mDice); rank 0 alone logged INFO."""
+    faults = []
+    names = sorted(os.listdir(work))
+    want = {'epoch_1.pth', 'latest.pth', os.path.basename(STC_CONFIG)}
+    logs = [n for n in names if n.endswith('.log')]
+    if not want <= set(names) or len(logs) != 1 or \
+            len([n for n in names if n.endswith('.log.json')]) != 1 or \
+            [n for n in names if n.endswith('.pth') and
+             n not in ('epoch_1.pth', 'latest.pth')]:
+        faults.append(f'{ranks} ranks wrote {names}')
+        return faults, None
+    with open(os.path.join(work, logs[0])) as f:
+        text = f.read()
+    # the last evaluation's summary table: a header row, then the values
+    rows = [ln.split('|') for ln in text.split('Summary:')[-1].splitlines()
+            if '|' in ln]
+    mdice = [float(v) / 100 for k, v in zip(*rows[:2])
+             if k.strip() == 'Dice'] if len(rows) >= 2 else []
+    if 'Distributed training: True' not in text or not mdice or \
+            f'Epoch [1][{steps_per_rank}/{steps_per_rank}]' not in text:
+        faults.append(f'{ranks} ranks: the log lacks the run: '
+                      f'{text[-1500:]}')
+    with open(launcher_log) as f:
+        if f.read().count('Distributed training: True') != 1:
+            faults.append(f'{ranks} ranks: INFO lines from more than '
+                          f'rank 0')
+    return faults, float(mdice[-1]) if mdice else None
+
+
+def phase_data_parallel(torch, root):
+    """Data parallelism on one card (``DATA_PARALLEL``): two ranks that
+    share ``cuda:0`` over gloo, started by ``run_group`` with a file
+    store under ``root``, each with its rows of the global batch:
+
+    (a) full-width STC-UNet (``my_config/STC-UNet.py``, dropout off), one
+        bf16 train step at 4 images a rank (the config's
+        ``samples_per_gpu``; a global 8) at 512², Adam and poly lr,
+        against one process taking the global batch: losses rtol 1e-3
+        and ``acc_seg`` within 0.1 points (bf16 activations; the
+        one-process step sums its convolutions and BN moments over 8
+        images, the ranks over 4 and an all-reduce), each BN layer's
+        running mean within 0.1·2^-7 (momentum times one bf16 ulp) of
+        its batch's sqrt(E[x²]) and its running variance within
+        0.1·2^-6 of E[x²], every parameter within 2·lr and two f32 ulps
+        of the reference and the moves of the coordinates whose first
+        gradient is at least 1e-2 of the largest within lr/1000 (Adam's
+        first step moves them by lr·sign(g)); both ranks' parameters and
+        buffers bit-equal after three steps; K1, K2 and K2b 4 launches a
+        rank. The gloo all-reduce of a gradient-sized f32 buffer is timed
+        beside the step: gloo stages it through host memory, so these
+        are a check, not a speed.
+    (b) slide (B=14: 126 tiles, 63 a rank) and whole (B=8) inference
+        sharded by ``set_mesh``, f32, TF32 off, against unsharded by
+        ``compare_logits``; both ranks' logits bit-equal.
+    (c) ``multi_gpu_test`` over the ranks' shards of ``test_path``'s 64
+        pseudo-KiTS slices (4 a batch, f32, TF32 off): its pre_eval areas
+        and mIoU and mDice equal to ``single_gpu_test``'s in one process.
+    (d) the train CLI under ``python -m torch.distributed.run
+        --nproc_per_node 2`` with ``dist_params.backend=gloo`` for one
+        epoch of the train path's 32 pairs (4 steps a rank) validating
+        through ``DistEvalHook``: rank 0 alone writes the checkpoint and
+        the logs (``dp_cli_check``).
+    (e) at the same time, one rank over NCCL (the config's
+        ``backend='jax'``) through the launcher: the train CLI on 8 of
+        the pairs with its ``multi_gpu_test`` validation; two ranks over
+        NCCL on two cards when there are two, else it says so.
+
+    Every group has a deadline and any rank's failure fails the phase.
+    Returns the ranks' K1, K2 and K2b launches."""
+    import numpy as np
+    from stc_unet_tpu_torch.apis import init_segmentor, single_gpu_test
+    from stc_unet_tpu_torch.datasets import build_dataloader, build_dataset
+    from stc_unet_tpu_torch.utils import Config
+    start = time.perf_counter()
+    dp = DATA_PARALLEL
+    world = dp['world']
+    work = os.path.join(root, 'data_parallel')
+    os.makedirs(work)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    cfg = Config.fromfile(os.path.join(REPO, STC_CONFIG))
+    cfg.model.decode_head.dropout_ratio = 0.0
+    cfg.dump(os.path.join(work, 'cfg.py'))
+    set_tf32(torch, False, False)
+    faults = []
+    # the one-process references, from the weights the ranks load
+    model = init_segmentor(cfg)
+    state = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    torch.save(state, os.path.join(work, 'state.pt'))
+    img, gt, slide = dp_inputs(torch)
+    step = train_step_for(torch, model, torch.bfloat16)
+    ref_logs = {k: v.item() for k, v in
+                step(img.cuda(), gt.cuda()).items()}
+    ref_grads = {k: p.grad.float().cpu() for k, p in
+                 model.named_parameters()}
+    ref_state = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    one_ms = dp_timed_steps(torch, step, img.cuda(), gt.cuda())
+    del step
+    model.load_state_dict(state)
+    model.eval()
+    model.test_cfg = dict(SLIDE)
+    ref_slide = model.slide_inference(slide.cuda(), None, False).float().cpu()
+    ref_whole = model.encode_decode(slide[:dp['whole']].cuda()).float().cpu()
+    model.test_cfg = dict(mode='whole')
+    split = os.path.join(work, 'split')
+    # test_path has checked the codec on the same data
+    written = write_split(split, dp['test'], dp['size'], TEST_PATH['seed'],
+                          check=False)
+    test = cfg.data.test
+    test.data_root, test.test_mode = split, True
+    dataset = build_dataset(test)
+    ref_pre = single_gpu_test(model, build_dataloader(
+        dataset, 4, 2, dist=False, shuffle=False), pre_eval=True)
+    ref_metrics = dataset.evaluate(ref_pre, ['mIoU', 'mDice'],
+                                   logger='silent')
+    del model
+    torch.cuda.empty_cache()
+
+    # (a)-(c): two ranks on cuda:0 over gloo
+    t0 = time.perf_counter()
+    run_group([[sys.executable, '-c',
+                f'import chip_smoke; chip_smoke.dp_rank({work!r}, {r}, '
+                f'{world})'] for r in range(world)], dp['deadline'], work,
+              env)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f'rank{r}.pt'),
+                        weights_only=False) for r in range(world)]
+    r0 = ranks[0]
+    want = dict(strip_pools=4, gate_add=4, gate_dots=4)
+    launches = dict.fromkeys(KERNELS, 0)
+    for r in ranks:
+        expect = [(r['step_counts'], want),
+                  (r['infer_counts'], dict(strip_pools=8, gate_add=8)),
+                  (r['test_counts'], dict(
+                      strip_pools=4 * r['test_forwards'],
+                      gate_add=4 * r['test_forwards']))]
+        for counts, wanted in expect:
+            if counts != per_call(wanted):
+                faults.append(f'rank {r["rank"]}: launches {counts}, want '
+                              f'{per_call(wanted)}')
+            for k in launches:
+                launches[k] += counts[k]
+    # (a)
+    pixel_pts = 0.1
+    for k, ref in ref_logs.items():
+        got = r0['logs'][k]
+        limit = 1e-3 * abs(ref) + 1e-6 if 'loss' in k else pixel_pts
+        if not math.isfinite(got) or abs(got - ref) > limit:
+            faults.append(f'{k}: ranks {got}, one process {ref}')
+    if ranks[1]['logs'] != r0['logs']:
+        faults.append('the ranks logged different values')
+    # the BN running stats after the step, each layer held to its batch's
+    # scale E[x^2] (the moments the step took, from the reference's
+    # running stats and the initial ones at momentum 0.1): the mean within
+    # one bf16 ulp (2^-7) of sqrt(E[x^2]), the variance within two of
+    # E[x^2], each times the momentum
+    stats_err = 0.0
+    for k in ref_state:
+        if not k.endswith('running_mean'):
+            continue
+        var = k[:-len('mean')] + 'var'
+        mean_b = (ref_state[k] - 0.9 * state[k]) / 0.1
+        var_b = (ref_state[var] - 0.9 * state[var]) / 0.1
+        square = var_b + mean_b ** 2
+        for key, limit in ((k, 0.1 * 2 ** -7 * square.sqrt()),
+                           (var, 0.1 * 2 ** -6 * square)):
+            ratio = ((r0['state1'][key] - ref_state[key]).abs() /
+                     limit).max().item()
+            stats_err = max(stats_err, ratio)
+            if ratio > 1:
+                faults.append(f'{key} off by {ratio} of its limit')
+    lr = OPTIMIZER['lr']
+    scale = max(g.abs().max().item() for g in ref_grads.values())
+    strong = moved = 0
+    move_err = param_err = 0.0
+    for k, g in ref_grads.items():
+        # Adam's first step moves a coordinate by at most lr, and each
+        # run rounds the result to f32 (within 2^-23 of the parameter)
+        dev = (r0['state1'][k] - ref_state[k]).abs() - \
+            2 ** -22 * ref_state[k].abs()
+        param_err = max(param_err, dev.max().item())
+        mask = g.abs() >= 1e-2 * scale
+        strong += int(mask.sum())
+        moved += g.numel()
+        if bool(mask.any()):
+            move = (r0['state1'][k] - state[k])[mask]
+            ref_move = (ref_state[k] - state[k])[mask]
+            move_err = max(move_err, (move - ref_move).abs().max().item())
+    if param_err > 2 * lr:
+        faults.append(f'a parameter is {param_err} (less two f32 ulps) '
+                      f'from the one-process step, over 2 lr')
+    if move_err > lr / 1000:
+        faults.append(f'a strong-gradient move is {move_err} off, over '
+                      f'lr/1000')
+    grad_whole = math.sqrt(
+        sum(((r0['grads'][k] - g) ** 2).sum().item()
+            for k, g in ref_grads.items()) /
+        sum((g ** 2).sum().item() for g in ref_grads.values()))
+    for when in ('state1', 'state3'):
+        unequal = [k for k, v in r0[when].items()
+                   if not torch.equal(v, ranks[1][when][k])]
+        if unequal:
+            faults.append(f'ranks differ after the {when[-1]}-step run: '
+                          f'{unequal[:4]}')
+    # (b)
+    checks = {}
+    for mode, ref in (('slide', ref_slide), ('whole', ref_whole)):
+        checks[mode] = compare_logits(torch, r0[mode], ref)
+        checks[mode].update(batch=ref.shape[0], size=dp['size'])
+        if not torch.equal(r0[mode], ranks[1][mode]):
+            faults.append(f'{mode}: the ranks got different logits')
+    # (c)
+    for r in ranks:
+        if len(r['pre_eval']) != len(ref_pre) or any(
+                not all(np.array_equal(np.asarray(a), np.asarray(b))
+                        for a, b in zip(x, y))
+                for x, y in zip(r['pre_eval'], ref_pre)):
+            faults.append(f'rank {r["rank"]}: multi_gpu_test areas differ '
+                          f'from single_gpu_test')
+        if {k: float(v) for k, v in r['metrics'].items()} != \
+                {k: float(v) for k, v in ref_metrics.items()}:
+            faults.append(f'rank {r["rank"]}: metrics {r["metrics"]}, one '
+                          f'process {ref_metrics}')
+    # (d) the train CLI, two ranks over gloo on one card; (e) NCCL: one
+    # rank, and two on two cards. The runs go at once: each is mostly its
+    # processes' start-up
+    cli = {}
+    runs = [(world, 'gloo', None, 'gloo_2_ranks'),
+            (1, 'jax', 8, 'nccl_1_rank')]
+    if torch.cuda.device_count() >= 2:
+        runs.append((2, 'jax', 8, 'nccl_2_ranks'))
+    else:
+        cli['nccl_2_ranks'] = (f'not run: {torch.cuda.device_count()} card '
+                               f'(NCCL between two cards needs two)')
+    if not faults:
+        t0 = time.perf_counter()
+        run_group([dp_cli(root, os.path.join(work, name), n, backend, stems)
+                   for n, backend, stems, name in runs], dp['deadline'],
+                  work, env)
+        cli['seconds'] = time.perf_counter() - t0
+        for i, (n, backend, stems, name) in enumerate(runs):
+            steps = (stems or TRAIN_PATH['train']) // (4 * n)
+            found, mdice = dp_cli_check(os.path.join(work, name), n, steps,
+                                        os.path.join(work, f'{i}.log'))
+            cli[name] = dict(ranks=n, backend=backend, steps=steps,
+                             mDice=mdice)
+            faults += found
+    ar = statistics.median(r0['allreduce_ms'])
+    emit('data_parallel', ok=not faults, faults=faults[:8], ranks=world,
+         device='cuda:0 shared', backend='gloo', config=STC_CONFIG,
+         batch_per_rank=dp['batch'], dtype='bfloat16', dropout_ratio=0.0,
+         losses=dict(ranks=r0['logs'], one_process=ref_logs),
+         bn_stats_step1_err_over_limit=stats_err,
+         params_max_abs_err=param_err, strong_moves_max_abs_err=move_err,
+         strong_coordinates=strong, coordinates=moved,
+         grad_whole_rel_err=grad_whole,
+         step_ms_per_rank=[r['step_ms'] for r in ranks],
+         one_process_step_ms_b8=one_ms,
+         gloo_allreduce_ms=[r['allreduce_ms'] for r in ranks],
+         gloo_allreduce_ms_median=ar,
+         grad_elements=r0['grad_elements'],
+         gloo_allreduce_gb_s=4 * r0['grad_elements'] / ar / 1e6,
+         launches_per_rank={r['rank']: dict(step=r['step_counts'],
+                                            inference=r['infer_counts'],
+                                            test=r['test_counts'])
+                            for r in ranks},
+         sharded=checks, multi_gpu_test=dict(
+             images=len(ref_pre), shards=[len(r['shard']) for r in ranks],
+             metrics={k: float(v) for k, v in r0['metrics'].items()},
+             split=written),
+         cli=cli, ranks_seconds=ranks_s,
+         seconds=time.perf_counter() - start,
+         tolerance='losses rtol 1e-3, acc_seg 0.1 points; BN stats: '
+                   'mean 0.1 x 2^-7 x sqrt(E[x^2]), var 0.1 x 2^-6 x '
+                   'E[x^2] of the batch; parameters within 2 lr and two '
+                   'f32 ulps, strong-gradient moves within lr/1000; ranks '
+                   'bit-equal; sharded logits by compare_logits; areas '
+                   'and metrics equal')
+    if faults:
+        raise AssertionError(f'data_parallel: {faults[:4]}')
+    return launches
 
 
 def _quiet_logger():
@@ -2612,13 +3106,14 @@ def phase_kernel_timing(torch, cf, err):
     return per
 
 
-def train_step_for(torch, model, compute_dtype=None):
-    """The port's train step on model: bench.py's Adam and poly lr."""
+def train_step_for(torch, model, compute_dtype=None, mesh=None):
+    """The port's train step on model: bench.py's Adam and poly lr (over
+    the ranks of ``mesh``, if given)."""
     from stc_unet_tpu_torch.core import build_lr_schedule, build_optimizer
     from stc_unet_tpu_torch.engine import make_train_step
     schedule = build_lr_schedule(LR_CONFIG, OPTIMIZER['lr'], MAX_ITERS)
     return make_train_step(model, build_optimizer(model, OPTIMIZER),
-                           schedule, compute_dtype=compute_dtype)
+                           schedule, compute_dtype=compute_dtype, mesh=mesh)
 
 
 def grad_errors(grads, ref):
@@ -2921,7 +3416,6 @@ def main(argv=None):
     from stc_unet_tpu_torch.apis import init_segmentor
     from stc_unet_tpu_torch.ops import _build
     from stc_unet_tpu_torch.ops import coordatt_fused as cf
-    from stc_unet_tpu_torch.ops import dual_pools as dp
     from stc_unet_tpu_torch.ops import window_attention as wa
     from stc_unet_tpu_torch.utils import Config
     # the package exports the function flash_attention under the module's
@@ -2962,10 +3456,7 @@ def main(argv=None):
     err.update(phase_flash_attention_kernels(
         torch, fa, str(libs['flash_attention']['path'])))
     phase_launch_limits(torch, cf, wa, fa)
-    modules = dict(**dict.fromkeys(CF_KERNELS, cf),
-                   **dict.fromkeys(WA_KERNELS, wa),
-                   **dict.fromkeys(FA_KERNELS, fa), dual_pools=dp)
-    kern = {name: getattr(modules[name], name) for name in KERNELS}
+    kern = kernel_functions()
 
     p_kernels = p_one_kernel(torch)
 
@@ -3004,6 +3495,11 @@ def main(argv=None):
             ran = phase(torch, kern, ('torch default',) + default_tf32, root)
             for name in KERNELS:
                 launches[name] += ran[name]
+        # data parallelism: ranks sharing the card, and the launcher on
+        # the train path's split
+        ran = phase_data_parallel(torch, root)
+        for name in KERNELS:
+            launches[name] += ran[name]
     phase_device_pipeline(torch)
     for phase in (phase_trained_path, phase_profile_input):
         ran = phase(torch, kern, ('torch default',) + default_tf32)

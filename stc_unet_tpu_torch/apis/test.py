@@ -1,6 +1,6 @@
-"""Test API (≙ ``stc_unet_tpu/apis/test.py``): ``single_gpu_test``.
-
-``multi_gpu_test`` comes with DDP (ROADMAP.md §1, Item 14).
+"""Test API (≙ ``stc_unet_tpu/apis/test.py``): ``single_gpu_test`` over
+a loader on one card, and ``multi_gpu_test`` over the ranks' shards of
+it, merged into what ``single_gpu_test`` gives on the whole split.
 """
 from __future__ import annotations
 
@@ -8,8 +8,11 @@ import os.path as osp
 import warnings
 
 import numpy as np
+import torch.distributed as dist
 
 from stc_unet_tpu_torch.utils.image import imdenormalize, imresize
+from stc_unet_tpu_torch.utils.util_distribution import (allgather,
+                                                        get_dist_info)
 
 
 def single_gpu_test(model, data_loader, show=False, out_dir=None,
@@ -49,11 +52,96 @@ def single_gpu_test(model, data_loader, show=False, out_dir=None,
     return results
 
 
+def multi_gpu_test(model, data_loader, tmpdir=None, gpu_collect=False,
+                   efficient_test=False, pre_eval=False, format_only=False,
+                   format_args=None):
+    """``single_gpu_test`` on this rank's shard of ``data_loader`` (built
+    with ``dist=True``), merged over the ranks (≙ the JAX
+    ``multi_gpu_test``): every rank returns the results of the whole
+    split in the dataset's order, as ``single_gpu_test`` gives them in
+    one process. ``pre_eval`` areas are merged by
+    :func:`_gather_pre_eval_results`, label maps through
+    ``all_gather_object``. With ``format_only`` rank 0 formats the merged
+    label maps and every rank gets the file names. ``tmpdir`` and
+    ``gpu_collect`` are accepted for the reference's argv and change
+    nothing, as in the JAX package. Every rank must make the call."""
+    results = single_gpu_test(model, data_loader,
+                              efficient_test=efficient_test,
+                              pre_eval=pre_eval)
+    rank, world = get_dist_info()
+    indices = data_loader.sampler.unpadded().tolist()
+    if world > 1 and pre_eval:
+        results = _gather_pre_eval_results(results, allgather)
+        indices = _gather_indices(indices, allgather)
+    elif world > 1:
+        parts = [None] * world
+        dist.all_gather_object(parts, (indices, results))
+        indices = [i for part, _ in parts for i in part]
+        results = [r for _, part in parts for r in part]
+    order = np.argsort(indices, kind='stable')
+    results = [results[i] for i in order]
+    if not format_only:
+        return results
+    files = [None]
+    if rank == 0:
+        files[0] = data_loader.dataset.format_results(
+            results, indices=sorted(indices), **(format_args or {}))
+    if world > 1:
+        dist.broadcast_object_list(files, 0)
+    return files[0]
+
+
+def _gather_pre_eval_results(results, allgather):
+    """All-gather the ranks' pre_eval 4-tuples in rank order, robust to
+    unequal and empty shards (≙ the JAX function, line for line).
+
+    ``allgather`` maps a local array of shape S to the stacked (P, *S)
+    one. Each rank pads its stack to the largest count, the counts (and
+    the class count, which an empty rank cannot know) are gathered first,
+    and the padding rows are masked out after the gather."""
+    local = (np.stack([np.stack(r) for r in results]).astype(np.float64)
+             if results else None)
+    # gather (count, num_classes) so even an empty rank can build a
+    # shape-agreeing padded stack (the gather needs identical shapes)
+    meta = np.asarray([len(results),
+                       local.shape[-1] if local is not None else 0])
+    metas = np.asarray(allgather(meta)).reshape(-1, 2)
+    counts, n_max = metas[:, 0], int(metas[:, 0].max())
+    if n_max == 0:
+        return []
+    num_classes = int(metas[:, 1].max())
+    if local is None:
+        local = np.zeros((0, 4, num_classes), np.float64)
+    pad = np.zeros((n_max - local.shape[0],) + local.shape[1:], local.dtype)
+    gathered = np.asarray(allgather(np.concatenate([local, pad], axis=0)))
+    out = []
+    for proc, n in enumerate(counts.tolist()):
+        out.extend(tuple(row) for row in gathered[proc, :int(n)])
+    return out
+
+
+def _gather_indices(indices, allgather):
+    """The ranks' dataset indices in rank order (the order of
+    :func:`_gather_pre_eval_results`): padded with -1 to the longest
+    shard, gathered, the padding dropped."""
+    n_max = int(np.asarray(allgather(np.asarray(len(indices)))).max())
+    local = np.full(n_max, -1, np.int64)
+    local[:len(indices)] = indices
+    gathered = np.asarray(allgather(local)).reshape(-1)
+    return gathered[gathered >= 0].tolist()
+
+
 def _batch_indices(data_loader):
+    """The dataset indices of each batch of the loader, its padding left
+    out (a loader without a sampler: the dataset in order)."""
     batch_size = getattr(data_loader, 'batch_size', 1)
-    n = len(data_loader.dataset)
-    for i in range(0, n, batch_size):
-        yield list(range(i, min(i + batch_size, n)))
+    sampler = getattr(data_loader, 'sampler', None)
+    if sampler is None:
+        indices = list(range(len(data_loader.dataset)))
+    else:
+        indices = sampler.unpadded().tolist()
+    for i in range(0, len(data_loader) * batch_size, batch_size):
+        yield indices[i:i + batch_size]
 
 
 def _as_test_kwargs(data):

@@ -10,6 +10,12 @@ iterations of an epoch from the loader), the runner with its hooks, and
 with ``validate`` an ``EvalHook`` over the val split, then runs the
 workflow. It trains on the card unless the caller asks for the CPU
 (``device='cpu'``); without CUDA it raises.
+
+``distributed=True`` trains one rank of a data-parallel run (one process
+a card, the process group joined by ``utils.init_dist``): the rank's
+shard of the train split in batches of ``samples_per_gpu``, the train
+step over ``default_data_mesh()`` (global-batch BN, averaged gradients),
+and a ``DistEvalHook`` over the val split's shards.
 """
 from __future__ import annotations
 
@@ -19,21 +25,24 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from stc_unet_tpu_torch.core import build_lr_schedule, build_optimizer
 from stc_unet_tpu_torch.datasets import (build_dataloader, build_dataset,
                                          wrap_loader_with_device_pipeline)
-from stc_unet_tpu_torch.engine import (EvalHook, build_runner,
-                                       find_latest_checkpoint)
+from stc_unet_tpu_torch.engine import (DistEvalHook, EvalHook,
+                                       build_runner, find_latest_checkpoint)
 from stc_unet_tpu_torch.utils.logger import get_root_logger
+from stc_unet_tpu_torch.utils.util_distribution import (default_data_mesh,
+                                                        sync_random_seed)
 
 
 def init_random_seed(seed: Optional[int] = None, device=None) -> int:
-    """``seed``, or one drawn from the global ``np.random`` (one process:
-    nothing to broadcast)."""
+    """``seed``, or one drawn from the global ``np.random``: rank 0's,
+    broadcast, in a process group of more than one rank."""
     if seed is not None:
         return seed
-    return int(np.random.randint(2 ** 31))
+    return sync_random_seed()
 
 
 def set_random_seed(seed: int, deterministic: bool = False):
@@ -60,10 +69,15 @@ def train_device(device=None) -> torch.device:
 
 
 def _refuse_unported(cfg, distributed):
-    if distributed or len(cfg.get('gpu_ids') or [0]) > 1:
+    if len(cfg.get('gpu_ids') or [0]) > 1:
         raise NotImplementedError(
-            'training on more than one GPU (DDP with SyncBatchNorm) is not '
-            'ported yet (ROADMAP.md, Slice C item 14)')
+            'one process drives one card: launch a process a card with '
+            'python -m torch.distributed.run --nproc_per_node N -m '
+            'stc_unet_tpu_torch.tools.train CONFIG --launcher pytorch')
+    if distributed and not dist.is_initialized():
+        raise RuntimeError('train_segmentor(distributed=True) needs the '
+                           'process group of the ranks: call '
+                           'utils.init_dist first')
     if cfg.get('remat'):
         raise NotImplementedError(
             'remat is not ported yet (ROADMAP.md §1, Item R: the recomputed '
@@ -104,8 +118,8 @@ def train_segmentor(model, dataset, cfg, distributed=False, validate=False,
     seed = cfg.get('seed', 0) or 0
     data_loaders = [
         build_dataloader(ds, cfg.data.samples_per_gpu,
-                         cfg.data.workers_per_gpu, num_gpus=1, dist=False,
-                         seed=seed, drop_last=False)
+                         cfg.data.workers_per_gpu, num_gpus=1,
+                         dist=distributed, seed=seed, drop_last=False)
         for ds in dataset]
     if cfg.data.get('device_pipeline'):
         _device_pipeline(cfg, data_loaders, dataset, seed, device, logger)
@@ -130,7 +144,9 @@ def train_segmentor(model, dataset, cfg, distributed=False, validate=False,
         default_args=dict(model=model, optimizer=optimizer,
                           lr_schedule=schedule, work_dir=cfg.work_dir,
                           logger=logger, meta=meta, seed=seed,
-                          compute_dtype=compute_dtype))
+                          compute_dtype=compute_dtype,
+                          mesh=default_data_mesh() if distributed
+                          else None))
     if timestamp is not None:
         runner.timestamp = timestamp
 
@@ -147,11 +163,12 @@ def train_segmentor(model, dataset, cfg, distributed=False, validate=False,
         val_dataset = build_dataset(cfg.data.val, dict(test_mode=True))
         val_dataloader = build_dataloader(
             val_dataset, samples_per_gpu=1,
-            workers_per_gpu=cfg.data.workers_per_gpu, dist=False,
+            workers_per_gpu=cfg.data.workers_per_gpu, dist=distributed,
             shuffle=False)
         eval_cfg = dict(cfg.get('evaluation', {}))
         eval_cfg['by_epoch'] = runner_cfg['type'] != 'IterBasedRunner'
-        runner.register_hook(EvalHook(val_dataloader, **eval_cfg),
+        eval_hook = DistEvalHook if distributed else EvalHook
+        runner.register_hook(eval_hook(val_dataloader, **eval_cfg),
                              priority='LOW')
 
     if cfg.get('auto_resume'):

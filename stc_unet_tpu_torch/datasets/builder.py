@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 
 from stc_unet_tpu_torch.utils import Registry
+from stc_unet_tpu_torch.utils.util_distribution import get_dist_info
 from .samplers import DistributedSampler
 
 DATASETS = Registry('dataset')
@@ -189,17 +190,21 @@ def build_dataloader(dataset, samples_per_gpu: int, workers_per_gpu: int,
                      shuffle: bool = True, seed: Optional[int] = None,
                      drop_last: bool = False,
                      num_replicas: Optional[int] = None,
-                     rank: int = 0, **kwargs):
+                     rank: Optional[int] = None, **kwargs):
     """Build the loader (≙ the JAX ``build_dataloader``): batches of
     ``samples_per_gpu * num_gpus`` from ``workers_per_gpu`` threads, each
     epoch a ``seed + epoch`` permutation with ``shuffle``, the last batch
     padded to full size unless ``drop_last``; each sample's draws seeded
-    by :func:`sample_seed`. ``dist``, ``pin_memory`` and
-    ``persistent_workers`` are accepted for the reference's argv and
-    change nothing: one process feeds one card, and the runner stages
-    each batch in pinned memory."""
+    by :func:`sample_seed`. With ``dist`` the loader is one rank's shard
+    (``num_replicas`` and ``rank``, by default those of the initialised
+    process group, else one process); without it, the whole dataset.
+    ``pin_memory`` and ``persistent_workers`` are accepted for the
+    reference's argv and change nothing: the runner stages each batch in
+    pinned memory."""
+    group_rank, group_size = get_dist_info() if dist else (0, 1)
     batch_size = samples_per_gpu * max(num_gpus, 1)
     return DataLoader(dataset, batch_size=batch_size, shuffle=shuffle,
                       num_workers=workers_per_gpu, seed=seed,
-                      num_replicas=num_replicas or 1, rank=rank,
+                      num_replicas=num_replicas or group_size,
+                      rank=group_rank if rank is None else rank,
                       drop_last=drop_last)

@@ -487,7 +487,17 @@ class DeviceBatchLoader:
         thread.start()
         try:
             while True:
-                item = q.get()
+                try:
+                    item = q.get(timeout=1.0)
+                except queue.Empty:
+                    # the feeder hands over a batch, its end or its
+                    # error; if it is gone with none of them queued, the
+                    # pass would wait forever
+                    if not thread.is_alive() and q.empty():
+                        raise RuntimeError(
+                            'DeviceBatchLoader: the feeder thread ended '
+                            'without its end of pass or an error')
+                    continue
                 if item is done:
                     return
                 if isinstance(item, BaseException):

@@ -10,14 +10,17 @@ slice: equal, disjoint shards of whole batches. ``batch_size=1`` is the
 JAX ``DistributedSampler``; the loader's ``batch_size`` is the JAX
 ``EpochSampler``. No process group is needed: ``num_replicas`` and
 ``rank`` default to the initialised ``torch.distributed`` group, else to
-one process.
+one process. ``seed=None`` takes rank 0's draw in a group of more than
+one rank (``sync_random_seed``), so every rank permutes alike.
 """
 from __future__ import annotations
 
 from typing import Iterator, Optional
 
 import numpy as np
-import torch.distributed as dist
+
+from stc_unet_tpu_torch.utils.util_distribution import (get_dist_info,
+                                                        sync_random_seed)
 
 
 class DistributedSampler:
@@ -26,21 +29,22 @@ class DistributedSampler:
                  rank: Optional[int] = None, shuffle: bool = True,
                  seed: Optional[int] = 0, batch_size: int = 1,
                  drop_last: bool = False) -> None:
-        grouped = dist.is_available() and dist.is_initialized()
+        group_rank, group_size = get_dist_info()
         if num_replicas is None:
-            num_replicas = dist.get_world_size() if grouped else 1
+            num_replicas = group_size
         if rank is None:
-            rank = dist.get_rank() if grouped else 0
+            rank = group_rank
         if not 0 <= rank < num_replicas:
             raise ValueError(
                 f'Invalid rank {rank}, rank should be in the interval '
                 f'[0, {num_replicas - 1}]')
         if seed is None:
-            if num_replicas > 1:
-                raise NotImplementedError(
-                    'DistributedSampler: a seed shared by the ranks needs '
-                    'DDP (ROADMAP.md, Slice C item 14); pass seed')
-            seed = int(np.random.randint(2 ** 31))
+            if num_replicas > 1 and group_size != num_replicas:
+                raise ValueError(
+                    f'DistributedSampler: seed=None over {num_replicas} '
+                    f'replicas needs their process group (init_dist) to '
+                    f'share a seed; pass seed')
+            seed = sync_random_seed()
         self.n = len(dataset)
         self.num_replicas = num_replicas
         self.rank = rank
@@ -63,6 +67,13 @@ class DistributedSampler:
             order = np.arange(self.n)
         order = np.resize(order, self.total_size)
         return order[self.rank::self.num_replicas]
+
+    def unpadded(self) -> np.ndarray:
+        """The rank's indices without the wrapped padding, which ends
+        its stream: what an evaluation over the shards counts once."""
+        return self.indices()[:len(range(self.rank,
+                                         min(self.n, self.total_size),
+                                         self.num_replicas))]
 
     def __iter__(self) -> Iterator[int]:
         return iter(self.indices().tolist())

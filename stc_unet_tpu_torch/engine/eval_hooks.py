@@ -2,8 +2,9 @@
 pre_eval=True)`` over the val loader every ``interval`` epochs (or
 iterations), ``dataset.evaluate``, the metrics into the log buffer, and
 with ``save_best`` the best checkpoint kept as
-``best_{key}_{epoch|iter}_{n}.pth``. ``DistEvalHook`` needs DDP and
-raises.
+``best_{key}_{epoch|iter}_{n}.pth`` (written by rank 0 alone).
+``DistEvalHook`` evaluates the ranks' shards of the val split through
+``multi_gpu_test``, whose merged results every rank evaluates.
 """
 from __future__ import annotations
 
@@ -121,16 +122,18 @@ class EvalHook(Hook):
         if not self.compare_func(key_score, best_score):
             return
         out_dir = self.out_dir or runner.work_dir
-        if self.best_ckpt_path and osp.isfile(self.best_ckpt_path):
-            os.remove(self.best_ckpt_path)
         cur = f'epoch_{runner.epoch + 1}' if self.by_epoch else \
             f'iter_{runner.iter + 1}'
         name = f'best_{self.key_indicator}_{cur}.pth'
-        self.best_ckpt_path = osp.join(out_dir, name)
-        save_checkpoint(runner.model, self.best_ckpt_path,
-                        meta=dict(epoch=runner.epoch + 1,
-                                  iter=runner.iter + 1,
-                                  best_score=float(key_score)))
+        last, self.best_ckpt_path = self.best_ckpt_path, \
+            osp.join(out_dir, name)
+        if runner.rank == 0:
+            if last and osp.isfile(last):
+                os.remove(last)
+            save_checkpoint(runner.model, self.best_ckpt_path,
+                            meta=dict(epoch=runner.epoch + 1,
+                                      iter=runner.iter + 1,
+                                      best_score=float(key_score)))
         hook_msgs['best_score'] = float(key_score)
         hook_msgs['best_ckpt'] = self.best_ckpt_path
         runner.logger.info(
@@ -140,9 +143,34 @@ class EvalHook(Hook):
 
 @HOOKS.register_module()
 class DistEvalHook(EvalHook):
-    """Evaluation across ranks: needs ``multi_gpu_test`` and DDP."""
+    """Evaluation over the ranks of a data-parallel run (≙ the JAX
+    ``DistEvalHook``): each rank runs its shard of the val loader through
+    ``test_fn`` (default ``multi_gpu_test``), which gives every rank the
+    merged result list, so every rank takes the same metrics and the
+    same ``save_best`` decision. Every rank must evaluate.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            'DistEvalHook needs multi_gpu_test and DDP, which are not '
-            'ported yet (ROADMAP.md, Slice C item 14)')
+    ``broadcast_bn_buffer``, ``tmpdir`` and ``gpu_collect`` are accepted
+    for the reference's configs and change nothing: the global-batch
+    ``BatchNorm`` of the data-parallel train step leaves the ranks'
+    running stats equal, so there is nothing to broadcast."""
+
+    def __init__(self, *args, broadcast_bn_buffer=True, tmpdir=None,
+                 gpu_collect=False, **kwargs):
+        if kwargs.get('test_fn') is None:
+            from stc_unet_tpu_torch.apis.test import multi_gpu_test
+            kwargs['test_fn'] = multi_gpu_test
+        super().__init__(*args, **kwargs)
+        self.broadcast_bn_buffer = broadcast_bn_buffer
+        self.tmpdir = tmpdir
+        self.gpu_collect = gpu_collect
+
+    def _do_evaluate(self, runner):
+        tmpdir = self.tmpdir or osp.join(runner.work_dir, '.eval_hook')
+        results = self.test_fn(runner.model, self.dataloader, tmpdir=tmpdir,
+                               gpu_collect=self.gpu_collect,
+                               pre_eval=self.pre_eval)
+        runner.log_buffer.clear()
+        runner.log_buffer.output['eval_iter_num'] = len(self.dataloader)
+        key_score = self.evaluate(runner, results)
+        if self.save_best and key_score is not None:
+            self._save_ckpt(runner, key_score)

@@ -21,7 +21,7 @@ class MMSegWandbHook(Hook):
     ``log_checkpoint_metadata``). ``num_eval_images`` is accepted for the
     reference's configs; as in the JAX package no images are logged.
     wandb is imported when the run starts; without it the hook warns and
-    does nothing."""
+    does nothing. In a data-parallel run only rank 0 logs."""
 
     def __init__(self, init_kwargs=None, interval=50, log_checkpoint=False,
                  log_checkpoint_metadata=False, num_eval_images=100):
@@ -32,6 +32,8 @@ class MMSegWandbHook(Hook):
         self.wandb = None
 
     def before_run(self, runner):
+        if runner.rank != 0:
+            return
         try:
             import wandb
         except ImportError:
@@ -75,7 +77,8 @@ class TorchProfilerHook(Hook):
     (``trace_iter_<first>-<last>.json``, opened by Perfetto or
     chrome://tracing) under ``log_dir`` (default ``<work_dir>/profile``):
     the card's kernels when the model is on the card, else the host's ops.
-    The path of the trace is kept in ``trace_file``."""
+    The path of the trace is kept in ``trace_file``. In a data-parallel
+    run rank 0 traces."""
 
     def __init__(self, start_iter=10, num_iters=5, log_dir=None):
         self.start_iter = start_iter
@@ -85,7 +88,8 @@ class TorchProfilerHook(Hook):
         self._prof = None
 
     def before_train_iter(self, runner):
-        if runner.iter != self.start_iter or self._prof is not None:
+        if runner.iter != self.start_iter or self._prof is not None or \
+                runner.rank != 0:
             return
         from torch.profiler import ProfilerActivity, profile
         self._prof = profile(activities=[

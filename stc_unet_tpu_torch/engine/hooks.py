@@ -167,8 +167,9 @@ class IterTimerHook(Hook):
 class TextLoggerHook(Hook):
     """Log the averaged values, the lr and the ETA every ``interval``
     iterations, to the logger and as one JSON line each to
-    ``<work_dir>/<timestamp>.log.json``, with the JAX package's keys:
-    ``mode, epoch, iter, lr``, the buffer's keys and ``eta``."""
+    ``<work_dir>/<timestamp>.log.json`` (rank 0's only), with the JAX
+    package's keys: ``mode, epoch, iter, lr``, the buffer's keys and
+    ``eta``."""
 
     def __init__(self, by_epoch=True, interval=10, ignore_last=True):
         self.by_epoch = by_epoch
@@ -178,7 +179,8 @@ class TextLoggerHook(Hook):
 
     def before_run(self, runner):
         self.start_iter = runner.iter
-        if runner.work_dir is not None and runner.timestamp is not None:
+        if runner.work_dir is not None and runner.timestamp is not None \
+                and runner.rank == 0:
             self.json_log_path = osp.join(runner.work_dir,
                                           f'{runner.timestamp}.log.json')
 
@@ -241,9 +243,9 @@ class TextLoggerHook(Hook):
 
 @HOOKS.register_module()
 class TensorboardLoggerHook(Hook):
-    """TensorBoard scalars every ``interval`` iterations; a warning and
-    nothing else when ``torch.utils.tensorboard`` cannot be imported (the
-    tensorboard package is missing)."""
+    """TensorBoard scalars every ``interval`` iterations, on rank 0; a
+    warning and nothing else when ``torch.utils.tensorboard`` cannot be
+    imported (the tensorboard package is missing)."""
 
     def __init__(self, log_dir=None, interval=10, by_epoch=True):
         self.log_dir = log_dir
@@ -252,6 +254,8 @@ class TensorboardLoggerHook(Hook):
         self.writer = None
 
     def before_run(self, runner):
+        if runner.rank != 0:
+            return
         log_dir = self.log_dir or osp.join(runner.work_dir, 'tf_logs')
         try:
             from torch.utils.tensorboard import SummaryWriter

@@ -8,8 +8,14 @@ checkpoints and resuming. The device work is ``engine.make_train_step``
 OptimizerHook. Each batch is staged in pinned memory and copied to the
 card with ``non_blocking=True``. Dropout masks come from a
 ``torch.Generator`` on the model's device, seeded from (``seed``, the
-iteration) before each step, so a resumed run draws what an unbroken one
-draws.
+iteration, the rank) before each step, so a resumed run draws what an
+unbroken one draws, and the ranks of a data-parallel run draw apart.
+
+In a data-parallel run (a ``mesh``, one process a card) every rank runs
+the loop and its hooks, but only rank 0 writes checkpoints,
+``latest.pth``, the log file and the JSON log (mmcv's ``master_only``):
+the ranks share the work dir. The JAX runner needs no such guard, since
+one JAX process drives all of a host's devices.
 
 A checkpoint's ``meta`` counts what is done: ``epoch`` the epochs begun
 (``runner.epoch + 1``, as in the JAX package) and ``iter`` the iterations
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from stc_unet_tpu_torch.utils.logger import get_root_logger
+from stc_unet_tpu_torch.utils.util_distribution import get_dist_info
 from .checkpoint import load_checkpoint, load_opt_state, save_checkpoint
 from .hooks import HOOKS, Hook, LogBuffer, get_priority
 from .train_state import make_train_step, make_val_step
@@ -53,11 +60,13 @@ class BaseRunner:
     """Shared runner machinery. ``model`` is a port segmentor on its
     device, ``optimizer`` a ``torch.optim`` optimizer over its parameters
     (``core.build_optimizer``), ``lr_schedule`` a ``schedule(k) -> lr``
-    (``core.build_lr_schedule``) or None to keep the groups' lr."""
+    (``core.build_lr_schedule``) or None to keep the groups' lr,
+    ``mesh`` the data mesh of a data-parallel run
+    (``engine.make_train_step``)."""
 
     def __init__(self, model, optimizer, lr_schedule: Optional[Callable] = None,
                  work_dir=None, logger=None, meta=None, max_epochs=None,
-                 max_iters=None, seed=0, compute_dtype=None):
+                 max_iters=None, seed=0, compute_dtype=None, mesh=None):
         self.model = model
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
@@ -80,6 +89,7 @@ class BaseRunner:
         self.outputs = None
         self.timestamp = time.strftime('%Y%m%d_%H%M%S', time.localtime())
         self.seed = int(seed or 0)
+        self.rank, self.world_size = get_dist_info()
         self.device = next(model.parameters()).device
         self._generator = torch.Generator(device=self.device)
         # the step counts from 0 in its closure; a resumed run's schedule
@@ -88,8 +98,9 @@ class BaseRunner:
         schedule = None if lr_schedule is None else \
             (lambda k: lr_schedule(self._schedule_base + k))
         self._train_step = make_train_step(model, optimizer, schedule,
-                                           compute_dtype=compute_dtype)
-        self._val_step = make_val_step(model)
+                                           compute_dtype=compute_dtype,
+                                           mesh=mesh)
+        self._val_step = make_val_step(model, mesh=mesh)
 
     # -- properties ----------------------------------------------------------
     @property
@@ -164,7 +175,10 @@ class BaseRunner:
                         create_symlink=True, max_keep_ckpts=-1):
         """Write ``epoch_{n}.pth`` (or ``iter_{n}.pth``) to ``out_dir``,
         point ``latest.pth`` at it (a copy where links fail) and keep the
-        newest ``max_keep_ckpts`` (all when <= 0)."""
+        newest ``max_keep_ckpts`` (all when <= 0); return its path. Only
+        rank 0 writes (the others return None)."""
+        if self.rank != 0:
+            return None
         prefix = 'epoch_' if by_epoch else 'iter_'
         number = self.epoch + 1 if by_epoch else self._iters_done
         name = (filename_tmpl or prefix + '{}.pth').format(number)
@@ -243,7 +257,8 @@ class BaseRunner:
         self.data_batch = dict(data_batch, img=img, gt_semantic_seg=gt)
         if train_mode:
             self._generator.manual_seed(
-                (self.seed * 1_000_003 + self.iter) % 2 ** 63)
+                ((self.seed * 1_000_003 + self.iter) * self.world_size +
+                 self.rank) % 2 ** 63)
             log_vars = self._train_step(img, gt, self._generator)
             self._iters_done = self.iter + 1
         else:

@@ -17,14 +17,29 @@ and ``make_train_step`` returns a closure that takes one step in place:
 
 The log vars come back as 0-dim tensors on the model's device, so a loop of
 steps does not wait on the host.
+
+With a data ``mesh`` of more than one rank (one process a card,
+``utils/util_distribution.py``) each rank takes its rows of the global
+batch, and the step is the JAX mesh step's: the model's ``BatchNorm``
+layers take the global batch's moments, the gradients are averaged over
+the ranks by one coalesced all-reduce between ``backward()`` and the
+optimizer step (the global loss is the mean of the ranks' losses, as
+every rank holds as many images), and the log vars are global means.
+The parameters and buffers are broadcast from rank 0 when the step is
+made; from then on every rank applies the same update to them and to
+its optimizer state.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
+from stc_unet_tpu_torch.models.bricks import BatchNorm
 from stc_unet_tpu_torch.models.losses.utils import total_loss_from_dict
+from stc_unet_tpu_torch.utils.util_distribution import (broadcast_tensors,
+                                                        mesh_group)
 
 __all__ = ['make_train_step', 'make_val_step', 'total_loss_from_dict']
 
@@ -38,17 +53,24 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     ``img`` is an NHWC batch, ``gt`` its labels (N, H, W); ``generator``
     (a ``torch.Generator`` on the model's device) draws the dropout masks.
     Each call puts the model in train mode. Without ``schedule`` the
-    groups keep their lr.
+    groups keep their lr. ``mesh`` (a ``('data',)`` device mesh or a
+    process group) makes it the data-parallel step of the module's
+    docstring; a mesh of one rank changes nothing.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            'multi-GPU training (DDP with SyncBatchNorm) is not ported yet '
-            '(ROADMAP.md, Slice C item 14)')
+    group = mesh_group(mesh)
     if remat:
         raise NotImplementedError(
             'remat is not ported yet: under torch.utils.checkpoint the '
             'recomputed forward would update the BN running stats twice '
             '(ROADMAP.md)')
+    if group is not None:
+        broadcast_tensors(list(model.parameters()) + list(model.buffers()),
+                          group)
+    # train-mode BN takes its moments over the group's global batch (no
+    # group: this process's)
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.process_group = group
     count = 0
 
     def step(img, gt, generator=None):
@@ -61,10 +83,15 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
         total, log_vars = total_loss_from_dict(losses)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        if group is not None:
+            if count == 0:
+                model._check_loss_keys_consistent(log_vars)
+            _average_gradients(model, group)
+            log_vars = _global_means(model, log_vars, gt, group)
         if schedule is not None:
             lr = schedule(count)
-            for group in optimizer.param_groups:
-                group['lr'] = lr * group.get('lr_mult', 1.0)
+            for param_group in optimizer.param_groups:
+                param_group['lr'] = lr * param_group.get('lr_mult', 1.0)
         optimizer.step()
         count += 1
         return {k: v.detach() for k, v in log_vars.items()}
@@ -72,9 +99,12 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     return step
 
 
-def make_val_step(model) -> Callable:
+def make_val_step(model, mesh=None) -> Callable:
     """``step(img, gt) -> log_vars``: the losses in eval mode (running BN
-    stats, no dropout), without gradients; the model's mode is restored."""
+    stats, no dropout), without gradients; the model's mode is restored.
+    With a ``mesh`` of more than one rank the log vars are the global
+    batch's means."""
+    group = mesh_group(mesh)
 
     def step(img, gt):
         was_training = model.training
@@ -85,6 +115,45 @@ def make_val_step(model) -> Callable:
                     model.compute_losses(img, gt))
         finally:
             model.train(was_training)
+        if group is not None:
+            log_vars = _global_means(model, log_vars, gt, group)
         return log_vars
 
     return step
+
+
+def _average_gradients(model, group) -> None:
+    """Each parameter's gradient replaced by its mean over the ranks, in
+    one all-reduce of the gradients packed into one f32 buffer (a missing
+    gradient counts as zeros, so every rank sends the same layout)."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    offset = 0
+    for p in params:
+        p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
+        offset += p.numel()
+
+
+def _global_means(model, log_vars, gt, group):
+    """The log vars of the global batch from the ranks' own, in one
+    all-reduce: a loss is a mean over the pixels (or the images) of a
+    rank, and every rank holds as many, so the global one is the ranks'
+    mean; an accuracy (``*acc_seg``) is a mean over the labelled pixels,
+    so it is weighted by the rank's count of them (labels other than the
+    decode head's ``ignore_index``)."""
+    keys = list(log_vars)
+    values = torch.stack([log_vars[k].detach().float() for k in keys])
+    one = values.new_ones(())
+    labelled = (torch.as_tensor(gt, device=values.device) !=
+                model.decode_head.ignore_index).sum().float()
+    weights = torch.stack([labelled if k.endswith('acc_seg') else one
+                           for k in keys])
+    sums = torch.cat([values * weights, weights])
+    dist.all_reduce(sums, group=group)
+    means = sums[:len(keys)] / sums[len(keys):]
+    return dict(zip(keys, means.unbind()))

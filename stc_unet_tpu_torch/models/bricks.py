@@ -26,6 +26,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stc_unet_tpu_torch.utils.util_distribution import all_reduce_sum
+
 
 def h_sigmoid(x):
     """ReLU6(x + 3) / 6."""
@@ -87,17 +89,37 @@ class BatchNorm(nn.BatchNorm2d):
     variance ``var·n/(n-1)`` at torch's momentum convention, ``r = (1-m)·r
     + m·batch``, and ``num_batches_tracked`` counts as in torch. In eval
     the running stats are used.
+
+    With a ``process_group`` of more than one rank (set by
+    ``engine.make_train_step`` from its data mesh) the batch is the global
+    one, as under the JAX mesh step (the reference's SyncBN): the f32 sums
+    of x and x² and the element count go through one differentiable
+    all-reduce (a (2C+1,) vector), and ``mean``, ``var`` and ``n`` are
+    the global ones, so every rank takes the same running stats.
     """
+
+    process_group = None
 
     def forward(self, x):
         xf = x.float()
         if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = xf.square().mean((0, 2, 3)) - mean.square()
             n = x.numel() // x.shape[1]
+            if self.process_group is None:
+                mean = xf.mean((0, 2, 3))
+                var = xf.square().mean((0, 2, 3)) - mean.square()
+                bessel = n / max(n - 1, 1)
+            else:
+                c = x.shape[1]
+                sums = all_reduce_sum(torch.cat([
+                    xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3)),
+                    xf.new_full((1,), n)]), self.process_group)
+                n = sums[2 * c]
+                mean = sums[:c] / n
+                var = sums[c:2 * c] / n - mean.square()
+                bessel = n / (n - 1).clamp(min=1)
             with torch.no_grad():
                 m = self.momentum
-                unbiased = var * (n / max(n - 1, 1))
+                unbiased = var * bessel
                 self.running_mean.copy_((1 - m) * self.running_mean +
                                         m * mean)
                 self.running_var.copy_((1 - m) * self.running_var +

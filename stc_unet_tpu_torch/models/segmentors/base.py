@@ -10,6 +10,9 @@ from typing import Optional
 import numpy as np
 import torch.nn as nn
 
+from stc_unet_tpu_torch.utils.util_distribution import allgather as \
+    dist_allgather
+from stc_unet_tpu_torch.utils.util_distribution import get_dist_info
 from ..losses.utils import total_loss_from_dict
 
 
@@ -86,11 +89,32 @@ class BaseSegmentor(nn.Module, metaclass=ABCMeta):
     @staticmethod
     def _parse_losses(losses: dict):
         """Sum every ``*loss*`` entry into the total; the log vars as
-        floats. The JAX package's cross-host check of the loss keys has
-        nothing to check in one process; it comes with DDP (ROADMAP.md,
-        Slice C item 14)."""
+        floats. Inside a process group of more than one rank the ranks'
+        loss keys are checked first (:meth:`_check_loss_keys_consistent`)."""
         loss, log_vars = total_loss_from_dict(losses)
+        BaseSegmentor._check_loss_keys_consistent(log_vars)
         return loss, {k: float(v.detach()) for k, v in log_vars.items()}
+
+    @staticmethod
+    def _check_loss_keys_consistent(log_vars, allgather=None,
+                                    process_count=None, process_index=0):
+        """Fail fast when the ranks' log vars differ in number (≙ the JAX
+        ``_check_loss_keys_consistent``): every later collective of the
+        step would otherwise mismatch or hang. ``allgather`` (an array to
+        the ranks' stack), ``process_count`` and ``process_index`` are
+        injectable for tests; by default they come from the initialised
+        process group, and one process has nothing to check."""
+        if process_count is None:
+            process_index, process_count = get_dist_info()
+            if process_count <= 1:
+                return
+            allgather = dist_allgather
+        lengths = np.asarray(allgather(np.asarray(len(log_vars))))
+        if int(lengths.sum()) != len(log_vars) * process_count:
+            raise AssertionError(
+                'loss log variables are different across ranks!\n'
+                f'rank {process_index} len(log_vars): {len(log_vars)} '
+                'keys: ' + ','.join(log_vars.keys()))
 
     # -- visualisation -------------------------------------------------------
     def show_result(self, img, result, palette=None, win_name='', show=False,

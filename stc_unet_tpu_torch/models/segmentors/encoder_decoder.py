@@ -12,6 +12,13 @@ offsets into one batch, run through the net at once, scatter-added back
 in tile order, and multiplied by the precomputed ``1 / count`` of the
 overlaps.
 
+``set_mesh`` shards inference over the ranks of a ``('data',)`` mesh, the
+counterpart of the JAX ``'data'`` sharding: whole mode splits the image
+batch, slide mode the batch of tiles, into contiguous chunks (padded to
+a multiple of the ranks), each rank runs its chunk, and one all-reduce
+of a zero-filled buffer gives every rank all the logits, stitched in the
+unsharded order. Every rank must make the call.
+
 Training is ``forward_train``/``compute_losses`` in the module's current
 mode: call ``.train()`` first, as ``EncoderDecoder.__init__`` and
 ``init_segmentor`` leave the model in eval. ``engine.make_train_step``
@@ -24,10 +31,12 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from stc_unet_tpu_torch.core.utils import add_prefix
 from stc_unet_tpu_torch.ops import resize
+from stc_unet_tpu_torch.utils.util_distribution import mesh_group
 from .. import builder
 from ..backbones.unet_backbone import MultiheadAttention
 from ..bricks import BatchNorm
@@ -60,7 +69,14 @@ class EncoderDecoder(BaseSegmentor):
         self.train_cfg = train_cfg
         self.test_cfg = dict(test_cfg or {})
         self._inv_counts: Dict[tuple, torch.Tensor] = {}
+        self.mesh_group = None
         self.eval()
+
+    def set_mesh(self, mesh):
+        """Shard inference over a ``('data',)`` mesh (a ``DeviceMesh`` or
+        a process group; None, or one rank, unshards). A ``'spatial'``
+        axis raises (ROADMAP.md §1, item 14b)."""
+        self.mesh_group = mesh_group(mesh)
 
     # -- initialization ------------------------------------------------------
     def init_weights(self, seed: int = 0):
@@ -108,11 +124,35 @@ class EncoderDecoder(BaseSegmentor):
         return img.to(self.device)
 
     def _logits(self, img):
-        """encode_decode on an NHWC tensor on the model's device."""
+        """encode_decode on an NHWC tensor on the model's device; with a
+        mesh, each rank runs its contiguous chunk of the batch."""
+        if self.mesh_group is not None:
+            return self._sharded_logits(img)
+        return self._net_logits(img)
+
+    def _net_logits(self, img):
         out = self.decode_head(self.backbone(img.permute(0, 3, 1, 2)))
         return resize(out.permute(0, 2, 3, 1), size=img.shape[1:3],
                       mode='bilinear', align_corners=self.align_corners,
                       warning=False)
+
+    def _sharded_logits(self, img):
+        """The batch padded (with its last image) to ``k`` images a rank,
+        rank r's ``[r·k, (r+1)·k)`` run here, and the logits of all
+        ranks summed into a zero-filled buffer by one all-reduce (one
+        collective, which gloo also runs on the card); the padding is
+        cut off."""
+        group = self.mesh_group
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        n = img.shape[0]
+        k = -(-n // world)
+        padded = img if k * world == n else torch.cat(
+            [img, img[-1:].expand(k * world - n, *img.shape[1:])])
+        mine = self._net_logits(padded[rank * k:(rank + 1) * k])
+        out = mine.new_zeros((k * world,) + mine.shape[1:])
+        out[rank * k:(rank + 1) * k] = mine
+        dist.all_reduce(out, group=group)
+        return out[:n]
 
     # -- feature extraction / encode-decode ----------------------------------
     @torch.inference_mode()

@@ -5,7 +5,7 @@ same argv):
         [--eval mIoU mDice ...] [--aug-test] [--out F.pkl] [--format-only]
         [--show-dir D] [--opacity A] [--eval-options K=V ...]
         [--cfg-options K=V ...] [--work-dir D] [--gpu-id N]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--launcher none|pytorch]
 
 The author's quirks are kept: ``DATA_ROOT`` is the test split's images
 directory, and its labels are the same path with ``images`` replaced by
@@ -23,9 +23,16 @@ images. ``--eval cityscapes`` writes the dataset's formatted results
 empty, and its default is not. The model runs on the card
 (``cuda:<gpu-id>``) unless ``--device cpu`` is given; without CUDA it
 raises. ``data.img_cache`` puts the test loader behind the
-decoded-image cache. A launcher other than ``none``, ``--gpu-collect``
-and ``--tmpdir`` (more than one GPU) raise, and so does ``--show`` (a
-window).
+decoded-image cache. ``--show`` (a window) raises.
+
+``python -m torch.distributed.run --nproc_per_node N -m
+stc_unet_tpu_torch.tools.test ... --launcher pytorch`` evaluates the
+split's shards on N ranks (``cuda:LOCAL_RANK``, the config's
+``dist_params`` as in the train CLI) through ``multi_gpu_test``; rank 0
+writes ``--out``, the metrics JSON and the formatted files and prints
+the metrics. ``--gpu-collect`` and ``--tmpdir`` are accepted and change
+nothing, as in the JAX CLI; ``--show-dir`` with a launcher raises
+(``multi_gpu_test`` paints nothing).
 """
 from __future__ import annotations
 
@@ -39,12 +46,14 @@ import warnings
 
 import torch
 
-from stc_unet_tpu_torch.apis import single_gpu_test
+from stc_unet_tpu_torch.apis import multi_gpu_test, single_gpu_test
 from stc_unet_tpu_torch.datasets import (build_dataloader, build_dataset,
                                          inject_img_cache)
 from stc_unet_tpu_torch.engine import load_checkpoint
 from stc_unet_tpu_torch.models import build_segmentor
 from stc_unet_tpu_torch.utils import Config
+from stc_unet_tpu_torch.utils.util_distribution import (get_dist_info,
+                                                        init_dist)
 from .train import DictAction
 
 AUG_RATIOS = [0.5, 0.75, 1.0, 1.25, 1.5, 1.75]
@@ -93,7 +102,8 @@ def parse_args(argv=None):
 
 def main(argv=None):
     """Run the CLI on ``argv`` (default ``sys.argv[1:]``); returns the
-    results of ``single_gpu_test``."""
+    results of ``single_gpu_test`` (``multi_gpu_test`` with a
+    launcher)."""
     args = parse_args(argv)
     if not (args.out or args.eval or args.format_only or args.show or
             args.show_dir):
@@ -101,10 +111,11 @@ def main(argv=None):
                          '--eval/--format-only/--show/--show-dir)')
     if args.eval and args.format_only:
         raise ValueError('--eval and --format_only cannot be both specified')
-    if args.launcher != 'none' or args.gpu_collect or args.tmpdir:
+    distributed = args.launcher != 'none'
+    if distributed and args.show_dir:
         raise NotImplementedError(
-            'testing on more than one GPU (a launcher, --gpu-collect or '
-            '--tmpdir) is not ported yet (ROADMAP.md, Slice C item 14)')
+            '--show-dir with a launcher: multi_gpu_test paints nothing, as '
+            'in the JAX CLI; run without a launcher to paint')
     if args.show:
         raise NotImplementedError(
             '--show opens a window, and the port has no window toolkit (the '
@@ -128,6 +139,10 @@ def main(argv=None):
         cfg.data.test.pipeline[1]['flip'] = True
     cfg.model.pretrained = None
     cfg.data.test['test_mode'] = True
+    if distributed:
+        device = init_dist(args.launcher, device=device.type,
+                           **cfg.get('dist_params', {}))
+    rank = get_dist_info()[0]
 
     cfg_name = osp.splitext(osp.basename(cfg_path))[0]
     work_dir = args.work_dir or osp.join('./work_dirs', cfg_name)
@@ -145,7 +160,8 @@ def main(argv=None):
     dataset = build_dataset(cfg.data.test)
     data_loader = build_dataloader(
         dataset, samples_per_gpu=1,
-        workers_per_gpu=cfg.data.workers_per_gpu, dist=False, shuffle=False)
+        workers_per_gpu=cfg.data.workers_per_gpu, dist=distributed,
+        shuffle=False)
 
     model = build_segmentor(cfg.model, test_cfg=cfg.get('test_cfg'))
     meta = load_checkpoint(model, args.checkpoint).get('meta') or {}
@@ -170,12 +186,20 @@ def main(argv=None):
     if format_only:
         eval_kwargs.setdefault('imgfile_prefix',
                                osp.join(work_dir, 'format_results'))
-    results = single_gpu_test(
-        model, data_loader, out_dir=args.show_dir,
-        pre_eval=args.eval is not None and not eval_on_format_results,
-        format_only=format_only,
-        format_args=eval_kwargs if format_only else {},
-        opacity=args.opacity)
+    pre_eval = args.eval is not None and not eval_on_format_results
+    format_args = eval_kwargs if format_only else {}
+    if distributed:
+        results = multi_gpu_test(
+            model, data_loader, tmpdir=args.tmpdir,
+            gpu_collect=args.gpu_collect, pre_eval=pre_eval,
+            format_only=format_only, format_args=format_args)
+    else:
+        results = single_gpu_test(
+            model, data_loader, out_dir=args.show_dir, pre_eval=pre_eval,
+            format_only=format_only, format_args=format_args,
+            opacity=args.opacity)
+    if rank != 0:
+        return results
 
     if args.out:
         warnings.warn('--out writes raw outputs to a pickle file')

@@ -3,7 +3,7 @@
     python -m stc_unet_tpu_torch.tools.train CONFIG [--work-dir D]
         [--load-from C] [--resume-from C] [--no-validate] [--seed N]
         [--deterministic] [--cfg-options K=V ...] [--auto-resume]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--launcher none|pytorch]
 
 It trains on the card (``--device cuda``, the default) and raises when
 CUDA is missing rather than fall back to the CPU; ``--device cpu`` asks
@@ -12,9 +12,21 @@ JAX ``.ckpt`` (its optax state mapped onto ``torch.optim``'s);
 ``--auto-resume`` takes the work dir's ``latest.pth``, else its newest
 ``.ckpt``. ``data.img_cache='ram'|'disk'`` (and ``data.img_cache_dir``)
 puts the loaders of the train and val splits behind the decoded-image
-cache. Launchers other than ``none`` (more than one GPU) raise. The work
-dir gets the config, ``<timestamp>.log``, ``<timestamp>.log.json`` and
-the checkpoints (``epoch_{n}.pth``, ``latest.pth``).
+cache. The work dir gets the config, ``<timestamp>.log``,
+``<timestamp>.log.json`` and the checkpoints (``epoch_{n}.pth``,
+``latest.pth``).
+
+Data-parallel training runs one process a card:
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m stc_unet_tpu_torch.tools.train CONFIG --launcher pytorch
+
+Each rank joins the group with the config's ``dist_params`` (``backend``
+``'jax'`` is NCCL on the card and gloo with ``--device cpu``; ``--cfg-
+options dist_params.backend=gloo`` runs ranks that share one card) and
+trains on ``cuda:LOCAL_RANK`` with ``samples_per_gpu`` images; rank 0
+writes the work dir. ``--gpus`` or ``--gpu-ids`` of more than one card in
+one process raise, as do the launchers other than ``pytorch``.
 """
 from __future__ import annotations
 
@@ -37,6 +49,8 @@ from stc_unet_tpu_torch.datasets import build_dataset, inject_img_cache
 from stc_unet_tpu_torch.models import build_segmentor
 from stc_unet_tpu_torch.utils import Config
 from stc_unet_tpu_torch.utils.logger import get_root_logger
+from stc_unet_tpu_torch.utils.util_distribution import (get_dist_info,
+                                                        init_dist)
 
 
 class DictAction(argparse.Action):
@@ -106,11 +120,11 @@ def main(argv=None):
     """Run the CLI on ``argv`` (default ``sys.argv[1:]``); returns the
     runner."""
     args = parse_args(argv)
-    if args.launcher != 'none' or (args.gpus or 1) > 1 or \
-            len(args.gpu_ids or [0]) > 1:
+    if (args.gpus or 1) > 1 or len(args.gpu_ids or [0]) > 1:
         raise NotImplementedError(
-            'training on more than one GPU (a launcher, --gpus or '
-            '--gpu-ids) is not ported yet (ROADMAP.md, Slice C item 14)')
+            'one process drives one card: launch a process a card with '
+            'python -m torch.distributed.run --nproc_per_node N -m '
+            'stc_unet_tpu_torch.tools.train CONFIG --launcher pytorch')
     cfg = Config.fromfile(args.config)
     if args.cfg_options is not None:
         cfg.merge_from_dict(args.cfg_options)
@@ -127,9 +141,14 @@ def main(argv=None):
         cfg.resume_from = args.resume_from
     cfg.auto_resume = args.auto_resume
     device = train_device(args.device)
+    distributed = args.launcher != 'none'
+    if distributed:
+        device = init_dist(args.launcher, device=device,
+                           **cfg.get('dist_params', {}))
 
     os.makedirs(osp.abspath(cfg.work_dir), exist_ok=True)
-    cfg.dump(osp.join(cfg.work_dir, osp.basename(args.config)))
+    if get_dist_info()[0] == 0:
+        cfg.dump(osp.join(cfg.work_dir, osp.basename(args.config)))
     timestamp = time.strftime('%Y%m%d_%H%M%S', time.localtime())
     logger = get_root_logger(log_file=osp.join(cfg.work_dir,
                                                f'{timestamp}.log'),
@@ -139,7 +158,7 @@ def main(argv=None):
     logger.info('Environment info:\n' + dash_line + env_info + '\n' +
                 dash_line)
     meta = dict(env_info=env_info)
-    logger.info('Distributed training: False')
+    logger.info(f'Distributed training: {distributed}')
     logger.info(f'Config:\n{cfg.pretty_text}')
 
     seed = init_random_seed(args.seed)
@@ -175,7 +194,7 @@ def main(argv=None):
             PALETTE=datasets[0].PALETTE)
     model.CLASSES = datasets[0].CLASSES
     model.PALETTE = datasets[0].PALETTE
-    return train_segmentor(model, datasets, cfg, distributed=False,
+    return train_segmentor(model, datasets, cfg, distributed=distributed,
                            validate=not args.no_validate,
                            timestamp=timestamp, meta=meta, device=device)
 

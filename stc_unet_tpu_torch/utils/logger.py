@@ -1,10 +1,15 @@
 """Root logger (≙ ``stc_unet_tpu/utils/logger.py``, itself the reference's
 ``mmseg/utils/logger.py:7``): the port's loggers are named
-``stc_unet_tpu_torch``."""
+``stc_unet_tpu_torch``. In a process group, as mmcv's ``get_logger``,
+only rank 0 logs at ``log_level`` and writes ``log_file``; the other
+ranks log errors only, so N ranks neither repeat every line nor race on
+one file."""
 from __future__ import annotations
 
 import logging
 import sys
+
+from .util_distribution import get_dist_info
 
 _LOGGERS = {}
 
@@ -13,6 +18,9 @@ def get_logger(name: str = 'stc_unet_tpu_torch', log_file: str = None,
                log_level: int = logging.INFO,
                file_mode: str = 'w') -> logging.Logger:
     logger = logging.getLogger(name)
+    if get_dist_info()[0] != 0:
+        log_file, log_level = None, logging.ERROR
+        logger.setLevel(log_level)
     if name in _LOGGERS:
         if log_file is not None and not any(
                 isinstance(h, logging.FileHandler) for h in logger.handlers):

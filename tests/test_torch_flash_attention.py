@@ -114,7 +114,8 @@ np.savez(sys.argv[1] + '/out.npz', **out)
 def _libraries():
     """{shape: the library's o, (l, m) residuals and jax.vjp gradients}
     for every shape of SHAPES, in interpret mode, from ``_LIBRARY`` run
-    in its own process without the persistent compilation cache."""
+    in its own process without the persistent compilation cache (about
+    20 s; a stall fails at 240 s rather than hold the suite)."""
     with tempfile.TemporaryDirectory() as d:
         arrays = dict(count=len(SHAPES))
         for i, shape in enumerate(SHAPES):
@@ -125,7 +126,7 @@ def _libraries():
                    JAX_ENABLE_COMPILATION_CACHE='false')
         env.pop('JAX_COMPILATION_CACHE_DIR', None)
         proc = subprocess.run([sys.executable, '-c', _LIBRARY, d], env=env,
-                              capture_output=True, text=True, timeout=900)
+                              capture_output=True, text=True, timeout=240)
         assert proc.returncode == 0, proc.stderr[-3000:]
         out = dict(np.load(osp.join(d, 'out.npz')))
     return {shape: (out[f'{i}_o'], out[f'{i}_l'], out[f'{i}_m'],

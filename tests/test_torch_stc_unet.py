@@ -143,10 +143,11 @@ def test_bf16_image_follows_the_jax_dtype_flow(models):
 
 def test_training_is_not_ported(models):
     """What of training is still not ported raises: a pixel sampler
-    (OHEM), the layer-decay optimizers, remat and multi-GPU steps. The
-    train step itself is held to JAX's in ``test_torch_train_step.py``;
-    here ``forward(return_loss=True)`` needs the labels and gives the
-    loss dict."""
+    (OHEM), the layer-decay optimizers and remat; a mesh must be a
+    device mesh or a process group. The train step itself is held to
+    JAX's in ``test_torch_train_step.py`` (on two ranks in
+    ``test_torch_data_parallel.py``); here ``forward(return_loss=True)``
+    needs the labels and gives the loss dict."""
     from stc_unet_tpu_torch.core import build_optimizer
     from stc_unet_tpu_torch.engine import make_train_step
     _, tm = models
@@ -169,9 +170,10 @@ def test_training_is_not_ported(models):
         build_optimizer(tm, dict(type='AdamW', lr=1e-3,
                                  constructor='LayerDecayOptimizerConstructor'))
     opt = build_optimizer(tm, dict(type='Adam', lr=1e-3))
-    for kwargs in (dict(remat=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            make_train_step(tm, opt, **kwargs)
+    with pytest.raises(NotImplementedError):
+        make_train_step(tm, opt, remat=True)
+    with pytest.raises(TypeError, match='DeviceMesh or a ProcessGroup'):
+        make_train_step(tm, opt, mesh=object())
     assert not tm.training
 
 

@@ -240,18 +240,26 @@ def test_config_name_image_cache_and_checkpoint_meta(env, single, tmp_path,
     assert len(results) == 3
 
 
-def test_cli_refusals():
+def test_cli_refusals(monkeypatch):
+    """A launcher needs the ranks of ``python -m torch.distributed.run``
+    (no single-process fallback) and paints nothing; ``--gpu-collect``
+    and ``--tmpdir`` are accepted, as in the JAX CLI; ``--show`` (a
+    window) raises."""
     argv = ['x/images', STC_CONFIG, 'c.pth']
-    for extra in (['--launcher', 'pytorch'], ['--gpu-collect'],
-                  ['--tmpdir', 't']):
-        with pytest.raises(NotImplementedError, match='Slice C item 14'):
-            port_cli.main(argv + extra)
+    for name in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR',
+                 'MASTER_PORT'):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match='torch.distributed.run'):
+        port_cli.main(argv + ['--launcher', 'pytorch', '--device', 'cpu'])
+    with pytest.raises(NotImplementedError, match='paints nothing'):
+        port_cli.main(argv + ['--launcher', 'pytorch', '--show-dir', 'd'])
     with pytest.raises(NotImplementedError, match='window'):
         port_cli.main(argv + ['--show'])
     import torch
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match='CUDA is not available'):
-            port_cli.main(argv)
+        for extra in ([], ['--gpu-collect', '--tmpdir', 't']):
+            with pytest.raises(RuntimeError, match='CUDA is not available'):
+                port_cli.main(argv + extra)
 
 
 _BLOCKED = ('cv2', 'PIL', 'msgpack', 'jax', 'flax', 'stc_unet_tpu',

@@ -443,11 +443,15 @@ def test_what_is_not_ported_raises(roots, tmp_path):
     cfg = train_config(Config, train_root, val_root, str(tmp_path))
     model = build_segmentor(cfg.model)
     ds = build_dataset(cfg.data.train)
-    cases = [(dict(distributed=True), {}, 'Slice C item 14'),
-             ({}, dict(gpu_ids=[0, 1]), 'Slice C item 14'),
-             ({}, dict(remat=True), 'Item R')]
-    for kw, extra, match in cases:
-        with pytest.raises(NotImplementedError, match=match):
+    # data parallelism is ported (item 14), one process a card: without
+    # the ranks' process group, or with two cards in one process, it
+    # raises; remat is not ported
+    cases = [(dict(distributed=True), {}, RuntimeError, 'init_dist'),
+             ({}, dict(gpu_ids=[0, 1]), NotImplementedError,
+              'torch.distributed.run'),
+             ({}, dict(remat=True), NotImplementedError, 'Item R')]
+    for kw, extra, error, match in cases:
+        with pytest.raises(error, match=match):
             train_segmentor(model, ds, Config(dict(cfg.to_dict(), **extra)),
                             device='cpu', **kw)
     # data.device_pipeline is ported (item 4): the loader is wrapped
@@ -479,9 +483,14 @@ def test_what_is_not_ported_raises(roots, tmp_path):
     assert (runner.epoch, runner.iter) == (1, 2)
     state = runner.optimizer.state[next(runner.model.parameters())]
     assert float(state['step']) == 2 and bool(state['exp_avg'].any())
-    from stc_unet_tpu_torch.engine import DistEvalHook
-    with pytest.raises(NotImplementedError, match='item 14'):
-        DistEvalHook(None)
+    # DistEvalHook is ported (item 14): it evaluates through
+    # multi_gpu_test, and takes the reference's arguments
+    from stc_unet_tpu_torch.apis import multi_gpu_test
+    from stc_unet_tpu_torch.engine import DistEvalHook, EvalHook
+    loader = build_dataloader(ds, 1, 0, shuffle=False)
+    hook = DistEvalHook(loader, broadcast_bn_buffer=True, gpu_collect=True)
+    assert hook.test_fn is multi_gpu_test
+    assert EvalHook(loader).test_fn is single_gpu_test
 
 
 # -- the CLI, where the card's machine lacks cv2, Pillow, msgpack and jax ----
@@ -546,13 +555,25 @@ def test_train_cli_runs_without_cv2_pillow_msgpack_or_jax(roots, tmp_path):
     assert len(single_gpu_test(model, loader, pre_eval=True)) == 2
 
 
-def test_cli_refuses_launchers_and_many_gpus():
+def test_cli_refuses_launchers_and_many_gpus(monkeypatch):
+    """One process drives one card: more than one GPU in a process raises
+    and says how to launch; ``--launcher pytorch`` needs the ranks of
+    ``python -m torch.distributed.run`` (no single-process fallback);
+    other launchers are not ported. The launcher itself runs in
+    ``test_torch_data_parallel.py``."""
     from stc_unet_tpu_torch.tools.train import main
     config = osp.join(REPO, 'my_config', 'STC-UNet.py')
-    for extra in (['--launcher', 'pytorch'], ['--gpus', '2'],
-                  ['--gpu-ids', '0', '1']):
-        with pytest.raises(NotImplementedError, match='Slice C item 14'):
+    for name in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR',
+                 'MASTER_PORT'):
+        monkeypatch.delenv(name, raising=False)
+    for extra in (['--gpus', '2'], ['--gpu-ids', '0', '1']):
+        with pytest.raises(NotImplementedError,
+                           match='torch.distributed.run'):
             main([config] + extra)
+    with pytest.raises(RuntimeError, match='torch.distributed.run'):
+        main([config, '--launcher', 'pytorch', '--device', 'cpu'])
+    with pytest.raises(NotImplementedError, match='slurm'):
+        main([config, '--launcher', 'slurm', '--device', 'cpu'])
 
 
 def test_save_checkpoint_keeps_meta_and_optimizer(tmp_path):

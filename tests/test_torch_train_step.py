@@ -398,7 +398,7 @@ def test_train_step_rejects_what_is_not_ported():
     cfg = _flagship_cfg(tiny=True)
     tm = build_segmentor(cfg)
     opt = build_optimizer(tm, dict(type='Adam', lr=1e-3))
-    with pytest.raises(NotImplementedError, match='Slice C'):
+    with pytest.raises(TypeError, match='DeviceMesh or a ProcessGroup'):
         make_train_step(tm, opt, mesh=object())
     with pytest.raises(NotImplementedError, match='BN running stats'):
         make_train_step(tm, opt, remat=True)
