@@ -377,13 +377,31 @@ def batch_seed(seed: int, pass_: int, index: int) -> int:
     return int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0])
 
 
+def _rows(params, lo: int, hi: int):
+    """Rows ``[lo, hi)`` of every (B,) tensor in a ``draw`` result."""
+    if torch.is_tensor(params):
+        return params[lo:hi]
+    if isinstance(params, dict):
+        return {k: _rows(v, lo, hi) for k, v in params.items()}
+    return tuple(_rows(v, lo, hi) for v in params)
+
+
 class DeviceBatchLoader:
     """Wrap a host loader whose batches are uint8 (``DeviceFormatBundle``)
     and finish each on ``device`` (default ``'cuda'``) with the program of
     :func:`make_device_train_pipeline`.
 
     Batch ``i`` of a pass draws from a ``torch.Generator`` seeded by
-    :func:`batch_seed` from (seed, pass, i). The pass is the epoch last
+    :func:`batch_seed` from (seed, pass, i). Under data parallelism that
+    batch is one rank's part of a global batch: the generator draws the
+    parameters of all ``world × B`` samples, and this rank applies rows
+    ``[rank·B, (rank+1)·B)`` to its images, as one JAX program draws every
+    sample of the global batch apart. A crop offset scales its sample's
+    own uniform draw by that sample's own valid extent, so the rows of the
+    other ranks need no extents here. ``rank`` and ``world`` are those of
+    the wrapped loader's sampler (``rank``, ``num_replicas``), else one
+    process; every rank's batches must hold B samples, as the port's
+    loaders give them. The pass is the epoch last
     given to :meth:`set_epoch` (the runner gives it before each epoch, as
     the host loader keys its samples on it), else the count of passes
     begun, taken on the consumer's thread. So the stream does not depend
@@ -411,6 +429,9 @@ class DeviceBatchLoader:
         self.fn = make_device_train_pipeline(**device_params)
         self.seed = int(seed or 0)
         self.prefetch = prefetch
+        sampler = getattr(loader, 'sampler', None)
+        self.rank = getattr(sampler, 'rank', 0)
+        self.world = getattr(sampler, 'num_replicas', 1)
         self._pass = 0
         self._epoch = None
         self._side = None
@@ -433,8 +454,15 @@ class DeviceBatchLoader:
         ``gt_semantic_seg`` replaced by the program's output."""
         img, gt = (_to_device(torch.as_tensor(batch[k]), self.device)
                    for k in ('img', 'gt_semantic_seg'))
-        img, gt = self.fn(self.generator(pass_, index), img, gt,
-                          batch.get('valid_hw'))
+        b, hw = img.shape[0], tuple(img.shape[1:3])
+        lo, valid = self.rank * b, batch.get('valid_hw')
+        if valid is not None and self.world > 1:
+            rows = np.tile(np.asarray(hw, np.int64), (self.world * b, 1))
+            rows[lo:lo + b] = np.asarray(valid)
+            valid = rows
+        params = self.fn.draw(self.generator(pass_, index), self.world * b,
+                              hw, valid)
+        img, gt = self.fn.apply(img, gt, _rows(params, lo, lo + b))
         return dict(batch, img=img, gt_semantic_seg=gt)
 
     def __iter__(self):

@@ -121,7 +121,7 @@ def load_checkpoint(model, filename: str) -> Dict[str, Any]:
             ckpt = dict(state_dict=ckpt)
     else:
         ckpt = load_checkpoint_file(filename)
-        ckpt['state_dict'] = jax_to_torch_state(ckpt['variables'])
+        ckpt['state_dict'] = jax_to_torch_state(ckpt['variables'], model)
     model.load_state_dict(ckpt['state_dict'], strict=True)
     meta = ckpt.get('meta') or {}
     if 'CLASSES' in meta:
@@ -191,7 +191,7 @@ def load_opt_state(optimizer: torch.optim.Optimizer, model,
                          f'{[need] if need else []}')
 
     def moments(field):
-        sd = jax_to_torch_state({'params': kinds[need][field]})
+        sd = jax_to_torch_state({'params': kinds[need][field]}, model)
         shapes = {k: tuple(v.shape) for k, v in sd.items()}
         want = {k: tuple(p.shape) for k, p in params.items()}
         if shapes != want:

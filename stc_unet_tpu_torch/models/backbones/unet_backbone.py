@@ -112,6 +112,14 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = Linear(embed_dim, embed_dim)
 
+    def reset_parameters(self, generator: torch.Generator):
+        """Xavier uniform for the packed in_proj, its bias 0."""
+        c3, c = self.in_proj_weight.shape
+        bound = math.sqrt(6.0 / (c + c3))
+        self.in_proj_weight.copy_(torch.empty(c3, c).uniform_(
+            -bound, bound, generator=generator))
+        self.in_proj_bias.zero_()
+
     def forward(self, q, k, v):
         c, h = self.embed_dim, self.num_heads
         hd = c // h

@@ -1,7 +1,7 @@
 """Neural building blocks for the port (NCHW ``nn.Module``s).
 
-Counterpart of ``stc_unet_tpu/models/bricks.py``, only what the STC-UNet
-and MaxViT-UNet paths use. Parameters are stored f32 with torch's names (``weight``,
+Counterpart of ``stc_unet_tpu/models/bricks.py``, only what the ported
+models use. Parameters are stored f32 with torch's names (``weight``,
 ``bias``, ``running_mean``, ...), so ``state_dict`` keys are the reference
 fork's. The dtype rules are the JAX package's:
 
@@ -90,6 +90,10 @@ class BatchNorm(nn.BatchNorm2d):
     + m·batch``, and ``num_batches_tracked`` counts as in torch. In eval
     the running stats are used.
 
+    With ``affine=False`` (DC-UNet's BN after a relu or sigmoid conv)
+    there is no weight or bias: the JAX brick's scale of ones and bias of
+    zeros.
+
     With a ``process_group`` of more than one rank (set by
     ``engine.make_train_step`` from its data mesh) the batch is the global
     one, as under the JAX mesh step (the reference's SyncBN): the f32 sums
@@ -127,9 +131,12 @@ class BatchNorm(nn.BatchNorm2d):
                 self.num_batches_tracked.add_(1)
         else:
             mean, var = self.running_mean, self.running_var
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * inv[:, None, None] + \
-            self.bias[:, None, None]
+        inv = torch.rsqrt(var + self.eps)
+        if self.affine:
+            inv = inv * self.weight
+        y = (xf - mean[:, None, None]) * inv[:, None, None]
+        if self.affine:
+            y = y + self.bias[:, None, None]
         return y.to(x.dtype)
 
 

@@ -1,6 +1,11 @@
+from .dc_unet_head import DC_Unet
 from .decode_head import BaseDecodeHead, resolve_out_channels
 from .maxvit_decoder import MaxViTDecoder
+from .swinunet_head import SwinUNet
+from .transunet_head import TransUNet, TransUNetModule
 from .unet_head import UnetHead
+from .unetpp_head import UnetPlusPlus
 
-__all__ = ['BaseDecodeHead', 'MaxViTDecoder', 'UnetHead',
+__all__ = ['BaseDecodeHead', 'DC_Unet', 'MaxViTDecoder', 'SwinUNet',
+           'TransUNet', 'TransUNetModule', 'UnetHead', 'UnetPlusPlus',
            'resolve_out_channels']

@@ -38,10 +38,8 @@ from stc_unet_tpu_torch.core.utils import add_prefix
 from stc_unet_tpu_torch.ops import resize
 from stc_unet_tpu_torch.utils.util_distribution import mesh_group
 from .. import builder
-from ..backbones.unet_backbone import MultiheadAttention
 from ..bricks import BatchNorm
 from ..builder import SEGMENTORS
-from ..utils.maxvit_core import RelativeSelfAttention
 from .base import BaseSegmentor
 
 
@@ -83,9 +81,10 @@ class EncoderDecoder(BaseSegmentor):
         """Random weights from ``seed``, drawn on the CPU by one
         ``torch.Generator`` in module order (so every device gets the same
         values): torch's default uniform bounds for convs, transposed convs
-        and linears, Xavier for the packed in_proj, a normal of std 0.02
-        cut at 2 std for the relative-position bias tables (flax's
-        ``truncated_normal(0.02)``), identity BN and LayerNorm."""
+        and linears, identity BN and LayerNorm, and any other module's
+        own ``reset_parameters(generator)`` for the parameters it holds
+        itself (the packed in_proj, the relative-position bias tables,
+        ViT's ``cls_token`` and position ``embedding``)."""
         g = torch.Generator().manual_seed(seed)
 
         def uniform_(p, bound):
@@ -98,17 +97,10 @@ class EncoderDecoder(BaseSegmentor):
                     uniform_(m.weight, bound)
                     if m.bias is not None:
                         uniform_(m.bias, bound)
-                elif isinstance(m, MultiheadAttention):
-                    c3, c = m.in_proj_weight.shape
-                    uniform_(m.in_proj_weight, math.sqrt(6.0 / (c + c3)))
-                    m.in_proj_bias.zero_()
-                elif isinstance(m, RelativeSelfAttention):
-                    t = m.relative_position_bias_table
-                    t.copy_(nn.init.trunc_normal_(
-                        torch.empty(t.shape), std=0.02, a=-0.04, b=0.04,
-                        generator=g))
                 elif isinstance(m, (BatchNorm, nn.LayerNorm)):
                     m.reset_parameters()
+                elif hasattr(m, 'reset_parameters'):
+                    m.reset_parameters(g)
         return self
 
     # -- helpers -------------------------------------------------------------

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from stc_unet_tpu_torch.ops.window_attention import window_attention
 from ..bricks import BatchNorm, Conv2d, Dropout, LayerNorm, Linear
-from .swin_core import DropPath, relative_position_index
+from .swin_core import DropPath, init_bias_table_, relative_position_index
 
 
 def window_partition_nhwc(x, window_size: Tuple[int, int]):
@@ -139,6 +139,9 @@ class RelativeSelfAttention(nn.Module):
         self.register_buffer('relative_position_index', torch.from_numpy(
             relative_position_index((gh, gw)).reshape(-1)).long(),
             persistent=False)
+
+    def reset_parameters(self, generator: torch.Generator):
+        init_bias_table_(self.relative_position_bias_table, generator)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         b_, n, c = x.shape

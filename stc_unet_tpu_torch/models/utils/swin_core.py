@@ -1,6 +1,15 @@
-"""Swin core pieces (≙ ``stc_unet_tpu/models/utils/swin_core.py``), only
-what MaxViT uses: the relative-position index and stochastic depth. The
-rest of the file comes with SwinUNet."""
+"""Swin core pieces (≙ ``stc_unet_tpu/models/utils/swin_core.py``): the
+relative-position index and stochastic depth, which MaxViT uses too, and
+SwinUNet's blocks.
+
+Tokens are (B, L, C) with L = H·W in row-major order, as in JAX. Window
+partition and reverse are reshapes and permutes; the shifted-window mask
+is computed with numpy from the static resolution at construction and
+kept as a buffer; attention is plain batched matmuls over (windows·B,
+heads, N, N), as the JAX SwinUNet computes it in einsums (no kernel).
+Only ``pad_to_window=False`` is ported, the branch SwinUNet uses: a map
+no larger than the window shrinks the window to the map and drops the
+shift."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -8,8 +17,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from ..bricks import drop_scaled
+from ..bricks import Conv2d, LayerNorm, Linear, drop_scaled
 
 
 def drop_path(x, rate: float, generator: Optional[torch.Generator] = None):
@@ -51,3 +61,234 @@ def relative_position_index(window_size: Tuple[int, int]) -> np.ndarray:
     rel[:, :, 1] += ww - 1
     rel[:, :, 0] *= 2 * ww - 1
     return rel.sum(-1)
+
+
+def window_partition(x, window_size: int):
+    """(B, H, W, C) → (windows·B, ws, ws, C)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // window_size, window_size, w // window_size,
+                  window_size, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window_size,
+                                               window_size, c)
+
+
+def window_reverse(windows, window_size: int, h: int, w: int):
+    """(windows·B, ws, ws, C) → (B, H, W, C)."""
+    b = windows.shape[0] // (h * w // window_size // window_size)
+    x = windows.reshape(b, h // window_size, w // window_size, window_size,
+                        window_size, -1)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, -1)
+
+
+def shifted_window_mask(h: int, w: int, window_size: int,
+                        shift_size: int) -> Optional[np.ndarray]:
+    """The SW-MSA mask (windows, N, N): -100 between tokens of one window
+    that come from different regions of the rolled map, else 0; None
+    without a shift."""
+    if shift_size == 0:
+        return None
+    img_mask = np.zeros((1, h, w, 1), np.float32)
+    cnt = 0
+    for hs in (slice(0, -window_size), slice(-window_size, -shift_size),
+               slice(-shift_size, None)):
+        for ws in (slice(0, -window_size), slice(-window_size, -shift_size),
+                   slice(-shift_size, None)):
+            img_mask[:, hs, ws, :] = cnt
+            cnt += 1
+    mask_windows = np.reshape(
+        img_mask.reshape(1, h // window_size, window_size,
+                         w // window_size, window_size, 1)
+        .transpose(0, 1, 3, 2, 4, 5), (-1, window_size * window_size))
+    attn_mask = mask_windows[:, None, :] - mask_windows[:, :, None]
+    return np.where(attn_mask != 0, -100.0, 0.0).astype(np.float32)
+
+
+def init_bias_table_(table: torch.Tensor, generator: torch.Generator):
+    """A relative-position bias table from a normal of std 0.02 cut at 2
+    std (flax's ``truncated_normal(0.02)``), drawn on the CPU."""
+    table.copy_(nn.init.trunc_normal_(torch.empty(table.shape), std=0.02,
+                                      a=-0.04, b=0.04, generator=generator))
+
+
+class WindowAttention(nn.Module):
+    """W-MSA with a relative-position bias table, on (windows·B, N, C):
+    ``softmax((q · head_dim^-0.5) kᵀ + bias (+ mask)) v``, then ``proj``.
+    SwinUNet's attention and projection dropout rates are 0, so there is
+    none."""
+
+    def __init__(self, dim: int, window_size: Tuple[int, int],
+                 num_heads: int):
+        super().__init__()
+        wh, ww = window_size
+        self.num_heads = num_heads
+        self.scale = (dim // num_heads) ** -0.5
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * wh - 1) * (2 * ww - 1), num_heads))
+        self.register_buffer('relative_position_index', torch.from_numpy(
+            relative_position_index((wh, ww)).reshape(-1)).long(),
+            persistent=False)
+        self.qkv = Linear(dim, dim * 3)
+        self.proj = Linear(dim, dim)
+
+    def reset_parameters(self, generator: torch.Generator):
+        init_bias_table_(self.relative_position_bias_table, generator)
+
+    def forward(self, x, mask=None):
+        b_, n, c = x.shape
+        heads = self.num_heads
+        qkv = self.qkv(x).reshape(b_, n, 3, heads, c // heads).permute(
+            2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        attn = (q * self.scale) @ k.transpose(-2, -1)
+        bias = self.relative_position_bias_table[
+            self.relative_position_index].reshape(n, n, heads).permute(
+                2, 0, 1)
+        attn = attn + bias[None].to(attn.dtype)
+        if mask is not None:
+            nw = mask.shape[0]
+            attn = attn.reshape(b_ // nw, nw, heads, n, n) + \
+                mask.to(attn.dtype)[None, :, None]
+            attn = attn.reshape(-1, heads, n, n)
+        x = (torch.softmax(attn, -1) @ v).transpose(1, 2).reshape(b_, n, c)
+        return self.proj(x)
+
+
+class SwinMlp(nn.Module):
+    """fc1 → exact GELU → fc2 (SwinUNet's dropout rate is 0)."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int):
+        super().__init__()
+        self.fc1 = Linear(in_dim, hidden_dim)
+        self.fc2 = Linear(hidden_dim, out_dim)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class SwinTransformerBlock(nn.Module):
+    """(S)W-MSA and an MLP, pre-LN, with DropPath per sample, on (B, H·W,
+    C) tokens of the static ``input_resolution``. A map no larger than the
+    window shrinks the window to the map and drops the shift (the JAX
+    ``pad_to_window=False``); ``pad_to_window=True`` belongs to the Swin
+    backbone, which is not ported (ROADMAP.md §1, item 20)."""
+
+    def __init__(self, dim: int, input_resolution: Tuple[int, int],
+                 num_heads: int, window_size: int = 7, shift_size: int = 0,
+                 mlp_ratio: float = 4.0, drop_path: float = 0.0,
+                 pad_to_window: bool = False):
+        super().__init__()
+        if pad_to_window:
+            raise NotImplementedError(
+                'SwinTransformerBlock(pad_to_window=True) belongs to the '
+                'Swin backbone, which is not ported yet (ROADMAP.md §1, '
+                'item 20)')
+        h, w = input_resolution
+        if min(h, w) <= window_size:
+            shift_size, window_size = 0, min(h, w)
+        self.input_resolution = (h, w)
+        self.window_size, self.shift_size = window_size, shift_size
+        self.norm1 = LayerNorm(dim, eps=1e-5)
+        self.attn = WindowAttention(dim, (window_size, window_size),
+                                    num_heads)
+        self.drop_path1 = DropPath(drop_path)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
+        self.mlp = SwinMlp(dim, int(dim * mlp_ratio), dim)
+        self.drop_path2 = DropPath(drop_path)
+        mask = shifted_window_mask(h, w, window_size, shift_size)
+        self.register_buffer('attn_mask', None if mask is None else
+                             torch.from_numpy(mask), persistent=False)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        (h, w), ws, s = self.input_resolution, self.window_size, \
+            self.shift_size
+        b, l, c = x.shape
+        if l != h * w:
+            raise ValueError(f'SwinTransformerBlock: {l} tokens, want '
+                             f'{h}x{w}')
+        shortcut = x
+        x = self.norm1(x).reshape(b, h, w, c)
+        if s > 0:
+            x = torch.roll(x, (-s, -s), (1, 2))
+        windows = window_partition(x, ws).reshape(-1, ws * ws, c)
+        windows = self.attn(windows, self.attn_mask)
+        x = window_reverse(windows.reshape(-1, ws, ws, c), ws, h, w)
+        if s > 0:
+            x = torch.roll(x, (s, s), (1, 2))
+        x = shortcut + self.drop_path1(x.reshape(b, h * w, c), generator)
+        return x + self.drop_path2(self.mlp(self.norm2(x)), generator)
+
+
+class PatchMerging(nn.Module):
+    """2x2 token merge → 2C: the concatenation of the (even, even),
+    (odd, even), (even, odd) and (odd, odd) rows and columns, LN and a
+    bias-free linear."""
+
+    def __init__(self, input_resolution: Tuple[int, int], dim: int):
+        super().__init__()
+        self.input_resolution = tuple(input_resolution)
+        self.norm = LayerNorm(4 * dim, eps=1e-5)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False)
+
+    def forward(self, x):
+        h, w = self.input_resolution
+        b, _, c = x.shape
+        x = x.reshape(b, h, w, c)
+        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
+                       x[:, 0::2, 1::2], x[:, 1::2, 1::2]], -1)
+        return self.reduction(self.norm(x.reshape(b, -1, 4 * c)))
+
+
+def _expand(x, h, w, s):
+    """(B, H·W, s·s·C) → (B, sH·sW, C): token (i, j) becomes the s×s block
+    at (s·i, s·j), its channels split row by row of the block."""
+    b, _, c = x.shape
+    x = x.reshape(b, h, w, s, s, c // (s * s))
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h * s * w * s,
+                                               c // (s * s))
+
+
+class PatchExpand(nn.Module):
+    """2x token expansion: a bias-free linear to 2C, each token split into
+    a 2x2 block of C/2, LN."""
+
+    def __init__(self, input_resolution: Tuple[int, int], dim: int):
+        super().__init__()
+        self.input_resolution = tuple(input_resolution)
+        self.expand = Linear(dim, 2 * dim, bias=False)
+        self.norm = LayerNorm(dim // 2, eps=1e-5)
+
+    def forward(self, x):
+        h, w = self.input_resolution
+        return self.norm(_expand(self.expand(x), h, w, 2))
+
+
+class FinalPatchExpandX4(nn.Module):
+    """4x final expansion: a bias-free linear to 16C, each token split
+    into a 4x4 block of C, LN."""
+
+    def __init__(self, input_resolution: Tuple[int, int], dim: int):
+        super().__init__()
+        self.input_resolution = tuple(input_resolution)
+        self.expand = Linear(dim, 16 * dim, bias=False)
+        self.norm = LayerNorm(dim, eps=1e-5)
+
+    def forward(self, x):
+        h, w = self.input_resolution
+        return self.norm(_expand(self.expand(x), h, w, 4))
+
+
+class PatchEmbed(nn.Module):
+    """A patch_size-strided conv on an NCHW x → (B, H'·W', embed_dim)
+    tokens, then LN."""
+
+    def __init__(self, patch_size: int = 4, in_channels: int = 3,
+                 embed_dim: int = 96):
+        super().__init__()
+        self.proj = Conv2d(in_channels, embed_dim, patch_size,
+                           stride=patch_size)
+        self.norm = LayerNorm(embed_dim, eps=1e-5)
+
+    def forward(self, x):
+        x = self.proj(x).permute(0, 2, 3, 1)
+        b, h, w, c = x.shape
+        return self.norm(x.reshape(b, h * w, c))

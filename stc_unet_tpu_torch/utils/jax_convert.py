@@ -8,33 +8,47 @@ neither jax nor the JAX package: the caller hands in the
 - conv ``kernel`` HWIO → ``weight`` OIHW;
 - linear ``kernel`` (in, out) → ``weight`` (out, in), under a ``linear``
   brick or a bare ``nn.Dense`` (``.../qkv_mapping/kernel``);
-- a bare ``nn.ConvTranspose`` ``kernel`` (kh, kw, in, out) → ``weight``
-  (in, out, kh, kw) flipped in both spatial axes. flax's ``ConvTranspose``
+- a bare 4-D flax ``kernel`` (an ``nn.Conv`` or ``nn.ConvTranspose``
+  outside the bricks) by the type of the port module it lands in, so the
+  model must be given for a tree that holds one: a ``ConvTranspose2d``
+  (MaxViT's ``DeconvModule``, DC-UNet's ``Deconv2x``) takes (kh, kw, in,
+  out) as ``weight`` (in, out, kh, kw) flipped in both spatial axes, and
+  a ``Conv2d`` (SwinUNet's ``patch_embed.proj`` and ``output``) takes
+  HWIO as OIHW, not flipped. flax's ``ConvTranspose``
   (``transpose_kernel=False``) does not flip its kernel, and torch's
-  ``ConvTranspose2d``, the adjoint of a cross-correlation, does; without
-  the flip every shape matches and the output is wrong;
+  ``ConvTranspose2d``, the adjoint of a cross-correlation, does; the two
+  transforms give tensors of the same shapes, so a wrong one shows only
+  in the output;
 - BN and LayerNorm ``scale`` → ``weight``; ``mean``/``var`` →
   ``running_mean``/``running_var`` (plus a zero ``num_batches_tracked``,
   so the result loads with ``strict=True``);
-- the packed ``in_proj_weight``/``in_proj_bias`` of the MHA and the
-  ``relative_position_bias_table`` kept verbatim;
+- the packed ``in_proj_weight``/``in_proj_bias`` of the MHA, the
+  ``relative_position_bias_table`` and ViT's ``cls_token`` and
+  ``embedding`` kept verbatim;
 - flax names that stand for a sequence index (``stem_0``, ``stages_1``,
-  ``blocks_0``) become that index (``stem.0``, ``stages.1``, ``blocks.0``).
+  ``blocks_0``, ``layers_0``, ``layers_up_1``, ``layer_blocks_2``) become
+  that index (``stem.0``, ``stages.1``, ``blocks.0``, ``layers.0``,
+  ``layers_up.1``, ``layer_blocks.2``).
 
 The STC-UNet keys are the reference fork's
 (``backbone.inc.conv.conv.0.weight``, ``decode_head.up1.ca.conv1.weight``,
 ...), i.e. the layout of the port's modules and of the fork's ``.pth``
 checkpoints. The MaxViT-UNet keys follow the flax names
 (``backbone.stages.0.blocks.0.block_transformer.attention.qkv_mapping.
-weight``): the fork's MaxViT module layout is not in the repo.
+weight``): the fork's MaxViT module layout is not in the repo. So do
+those of the ``EncoderDecoderFull`` heads (DC-UNet, UNet++, TransUNet,
+SwinUNet: ``decode_head.mres_block1.conv3x3.0.weight``,
+``decode_head.swin_unet.layers.0.blocks.1.attn.qkv.weight``), for the same
+reason.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 _DC = {'conv0': '0', 'bn1': '1', 'conv3': '3', 'bn4': '4'}
 _DC_ALT = '|'.join(_DC)
@@ -53,7 +67,8 @@ _RULES = (
      lambda m: f'{m.group(1)}.convs.{m.group(2)}.1'),
     (re.compile(r'\bfcs(\d)\b'), lambda m: f'fcs.{m.group(1)}'),
     (re.compile(r'\btr(\d)\b'), lambda m: f'tr.{m.group(1)}'),
-    (re.compile(r'\b(stem|stages|blocks)_(\d+)\b'),
+    (re.compile(r'\b(stem|stages|blocks|layers|layers_up|layer_blocks)'
+                r'_(\d+)\b'),
      lambda m: f'{m.group(1)}.{m.group(2)}'),
 )
 
@@ -62,8 +77,8 @@ def translate_path(path: Tuple[str, ...], collection: str = 'params'):
     """One flax leaf path → (torch key, transform tag).
 
     Tags: ``conv_w`` (HWIO→OIHW), ``linear_w`` ((in,out)→(out,in)),
-    ``kernel`` (a bare flax kernel: a Dense's when 2-D, a ConvTranspose's
-    when 4-D), ``verbatim``.
+    ``kernel`` (a bare flax kernel: a Dense's when 2-D, a Conv's or a
+    ConvTranspose's when 4-D), ``verbatim``.
     """
     leaf = path[-1]
     tag = 'verbatim'
@@ -82,23 +97,38 @@ def translate_path(path: Tuple[str, ...], collection: str = 'params'):
     elif leaf == 'scale':
         module, name = path[:-1], 'weight'
     elif leaf in ('bias', 'in_proj_weight', 'in_proj_bias',
-                  'relative_position_bias_table'):
+                  'relative_position_bias_table', 'cls_token', 'embedding'):
         module, name = path[:-1], leaf
     else:
         raise KeyError(f'cannot translate flax path {"/".join(path)}')
     key = '.'.join(module)
     for pattern, repl in _RULES:
         key = pattern.sub(repl, key)
-    return f'{key}.{name}', tag
+    return (f'{key}.{name}' if key else name), tag
+
+
+def _bare_4d_tag(key: str, modules: Dict[str, nn.Module]) -> str:
+    """``deconv_w`` or ``conv_w`` for a bare 4-D kernel landing at
+    ``key``, by the type of its module in ``modules``."""
+    module = modules.get(key.rpartition('.')[0])
+    if isinstance(module, nn.ConvTranspose2d):
+        return 'deconv_w'
+    if isinstance(module, nn.Conv2d):
+        return 'conv_w'
+    raise ValueError(
+        f'{key}: a bare 4-D flax kernel is a Conv\'s or a ConvTranspose\'s '
+        f'of the same shape; pass the model to tell them apart'
+        if module is None else
+        f'{key}: a bare 4-D flax kernel for a {type(module).__name__}')
 
 
 def _transform(value: np.ndarray, tag: str) -> np.ndarray:
     if tag == 'conv_w':
         return np.transpose(value, (3, 2, 0, 1))
+    if tag == 'deconv_w':
+        return np.transpose(value[::-1, ::-1], (2, 3, 0, 1))
     if tag == 'linear_w' or (tag == 'kernel' and value.ndim == 2):
         return np.transpose(value, (1, 0))
-    if tag == 'kernel' and value.ndim == 4:
-        return np.transpose(value[::-1, ::-1], (2, 3, 0, 1))
     if tag == 'kernel':
         raise ValueError(f'a bare flax kernel of shape {value.shape}')
     return value
@@ -118,14 +148,22 @@ def _float32(value) -> np.ndarray:
     return np.array(value, np.float32)
 
 
-def jax_to_torch_state(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def jax_to_torch_state(variables: Dict[str, Any],
+                       model: Optional[nn.Module] = None
+                       ) -> Dict[str, torch.Tensor]:
     """flax ``{'params', 'batch_stats'}`` (numpy leaves, or torch tensors
-    for bfloat16) → state_dict, in float32."""
+    for bfloat16) → state_dict, in float32. ``model``, the port module the
+    result is for, decides how a bare 4-D kernel turns; without it such a
+    kernel raises."""
+    modules = dict(model.named_modules()) if model is not None else {}
     sd: Dict[str, torch.Tensor] = {}
     for collection in ('params', 'batch_stats'):
         for path, value in _leaves(variables.get(collection, {})):
             key, tag = translate_path(path, collection)
-            v = _transform(_float32(value), tag)
+            v = _float32(value)
+            if tag == 'kernel' and v.ndim == 4:
+                tag = _bare_4d_tag(key, modules)
+            v = _transform(v, tag)
             sd[key] = torch.from_numpy(np.ascontiguousarray(v))
             if key.endswith('.running_mean'):
                 sd[key[:-len('running_mean')] + 'num_batches_tracked'] = \

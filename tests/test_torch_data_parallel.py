@@ -374,6 +374,90 @@ def test_rank_loaders_match_the_jax_loader(shuffle):
     assert sorted(shards[0] + shards[1]) == data
 
 
+# -- the augmentation on the device ------------------------------------------
+
+_AUG = dict(crop_size=(8, 8), mean=(0., 0., 0.), std=(255., 255., 255.),
+            flip_prob=0.5, photo_metric=True)
+
+
+def _aug_samples(n=8, hw=16):
+    """Pseudo host samples (``DeviceFormatBundle``'s uint8 output, its
+    valid extent and the dataset index); samples 2k and 2k + 1 hold the
+    same image, labels and extent."""
+    rng = np.random.RandomState(0)
+    out = []
+    for k in range(n // 2):
+        img = rng.randint(0, 255, (hw, hw, 3), dtype=np.uint8)
+        gt = rng.randint(0, 2, (hw, hw)).astype(np.uint8)
+        valid = np.array([rng.randint(9, hw + 1), rng.randint(9, hw + 1)],
+                         np.int32)
+        out += [dict(img=img, gt_semantic_seg=gt, valid_hw=valid,
+                     idx=np.array([i])) for i in (2 * k, 2 * k + 1)]
+    return out
+
+
+def _one_process(samples, batches, epoch, seed):
+    """The one-process ``DeviceBatchLoader`` over the given global batches
+    (lists of sample indices) in pass ``epoch``."""
+    from stc_unet_tpu_torch.datasets.builder import collate
+    from stc_unet_tpu_torch.datasets.device_pipeline import \
+        DeviceBatchLoader
+    from tests.test_torch_device_pipeline import _ListLoader
+    loader = DeviceBatchLoader(
+        _ListLoader([collate([samples[i] for i in b]) for b in batches]),
+        _AUG, seed=seed, prefetch=0, device='cpu')
+    assert (loader.rank, loader.world) == (0, 1)
+    loader.set_epoch(epoch)
+    return list(loader)
+
+
+def test_ranks_draw_their_own_rows_of_the_global_batch(tmp_path):
+    """Two gloo ranks, each with its shard of the samples
+    (``build_dataloader(dist=True)``) behind a ``DeviceBatchLoader``: the
+    ranks draw apart (their batches hold the same images, and no two come
+    out alike), and rank r's batch i is rows ``[r·B, (r+1)·B)`` of the
+    one-process program on the global batch, the ranks' samples in rank
+    order, bit for bit, in every epoch."""
+    samples, batch, seed, epochs = _aug_samples(), 2, 5, 2
+    ranks = run_ranks(str(tmp_path / 'ranks'), 'device_pipeline_draws',
+                      world=WORLD, samples=samples, batch=batch,
+                      params=_AUG, seed=seed, epochs=epochs)
+    assert [(r['rank'], r['world']) for r in ranks] == [(0, 2), (1, 2)]
+    for epoch in range(epochs):
+        mine = [r['epochs'][epoch] for r in ranks]
+        assert len(mine[0]) == len(mine[1]) == 2
+        whole = _one_process(samples, [a['idx'] + b['idx']
+                                       for a, b in zip(*mine)], epoch, seed)
+        for i, (a, b) in enumerate(zip(*mine)):
+            assert [j // 2 for j in a['idx']] == [j // 2 for j in b['idx']]
+            assert not np.array_equal(a['img'], b['img']), (epoch, i)
+            for r, part in enumerate((a, b)):
+                rows = slice(r * batch, (r + 1) * batch)
+                np.testing.assert_array_equal(
+                    part['img'], whole[i]['img'][rows].numpy())
+                np.testing.assert_array_equal(
+                    part['gt'], whole[i]['gt_semantic_seg'][rows].numpy())
+
+
+def test_one_process_draws_the_program_on_its_batch():
+    """In one process a batch is the global one: the loader's output is
+    the program's on the batch with the batch's generator, bit for bit,
+    as before the ranks drew their own rows."""
+    from stc_unet_tpu_torch.datasets.builder import collate
+    from stc_unet_tpu_torch.datasets.device_pipeline import (
+        batch_seed, make_device_train_pipeline)
+    samples = _aug_samples()
+    out = _one_process(samples, [[0, 3, 4], [7, 1, 2]], 3, seed=5)
+    fn = make_device_train_pipeline(**_AUG)
+    for i, got in enumerate(out):
+        b = collate([samples[j] for j in ([0, 3, 4], [7, 1, 2])[i]])
+        img, gt = fn(torch.Generator().manual_seed(batch_seed(5, 3, i)),
+                     torch.from_numpy(b['img']),
+                     torch.from_numpy(b['gt_semantic_seg']), b['valid_hw'])
+        assert torch.equal(got['img'], img)
+        assert torch.equal(got['gt_semantic_seg'], gt)
+
+
 # -- evaluation and sharded inference ---------------------------------------
 
 @pytest.fixture(scope='module')

@@ -112,7 +112,7 @@ def models():
         jm.net, jnp.zeros((1, SIZE, SIZE, 3)), train=False,
         method=EncoderDecoderNet.forward_heads)
     tm = build_segmentor(_cfg())
-    tm.load_state_dict(jax_to_torch_state(jm.variables), strict=True)
+    tm.load_state_dict(jax_to_torch_state(jm.variables, tm), strict=True)
     return jm, tm.to(memory_format=torch.channels_last)
 
 
@@ -131,7 +131,7 @@ def _leaves(tree, prefix=()):
 
 def test_every_flax_leaf_maps_to_a_port_key(models):
     jm, tm = models
-    sd = jax_to_torch_state(jm.variables)
+    sd = jax_to_torch_state(jm.variables, tm)
     leaves = [p for c in ('params', 'batch_stats')
               for p in _leaves(jm.variables[c])]
     bn = sum(1 for p in _leaves(jm.variables['batch_stats'])
@@ -160,7 +160,7 @@ def test_deconv_module_matches_jax_and_needs_the_flip():
     v = _random_variables(jmod, jnp.asarray(x), seed=1)
     ref = np.asarray(jax.jit(jmod.apply)(v, jnp.asarray(x)))
     tmod = DeconvModule(3, 4).eval()
-    sd = jax_to_torch_state(v)
+    sd = jax_to_torch_state(v, tmod)
     tmod.load_state_dict(sd, strict=True)
     out = tmod(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     assert out.shape == (2, 10, 12, 4)
@@ -185,7 +185,7 @@ def test_maxvit_block_eval_matches_jax(in_ch, out_ch, downscale):
     v = _random_variables(jmod, jnp.asarray(x), seed=3)
     ref = np.asarray(jax.jit(jmod.apply)(v, jnp.asarray(x)))
     tmod = MaxViTBlock(in_ch, out_ch, **kw).eval()
-    tmod.load_state_dict(jax_to_torch_state(v), strict=True)
+    tmod.load_state_dict(jax_to_torch_state(v, tmod), strict=True)
     xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(
         memory_format=torch.channels_last)
     with torch.no_grad():
@@ -257,7 +257,7 @@ def test_train_steps_match_jax(models):
                               tx)
     jstep = jax_train_step(jm, tx, donate=False)
     tm = build_segmentor(cfg)
-    tm.load_state_dict(jax_to_torch_state(variables), strict=True)
+    tm.load_state_dict(jax_to_torch_state(variables, tm), strict=True)
     tm = tm.to(memory_format=torch.channels_last)
     step = make_train_step(tm, build_optimizer(tm, ocfg),
                            build_lr_schedule(lr_config, ocfg['lr'], 10))
@@ -272,7 +272,7 @@ def test_train_steps_match_jax(models):
         if i == 0:
             g1 = {k: p.grad.clone() for k, p in tm.named_parameters()}
             moves1 = _moves(tm, p0, state.variables)
-    ref = jax_to_torch_state(_np(state.variables))
+    ref = jax_to_torch_state(_np(state.variables), tm)
     sd = tm.state_dict()
     for k, p in tm.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), ref[k].numpy(),
@@ -293,7 +293,7 @@ def test_train_steps_match_jax(models):
 
 def _moves(tm, p0, jax_variables):
     """{name: (the port's p - p0, JAX's p - p0)} over the parameters."""
-    ref = jax_to_torch_state(_np(jax_variables))
+    ref = jax_to_torch_state(_np(jax_variables), tm)
     return {k: (p.detach() - p0[k], ref[k] - p0[k])
             for k, p in tm.named_parameters()}
 
@@ -408,7 +408,7 @@ def test_full_width_whole_parity_512():
         jm.net, jnp.zeros((1, 512, 512, 3)), train=False,
         method=EncoderDecoderNet.forward_heads)
     tm = build_segmentor(cfg.model, test_cfg=cfg.get('test_cfg'))
-    tm.load_state_dict(jax_to_torch_state(jm.variables), strict=True)
+    tm.load_state_dict(jax_to_torch_state(jm.variables, tm), strict=True)
     tm = tm.to(memory_format=torch.channels_last)
     img = np.random.RandomState(5).rand(1, 512, 512, 3).astype(np.float32)
     out = tm.encode_decode(img).numpy()

@@ -97,7 +97,9 @@ def test_fork_checkpoint_loads_strict_and_matches_the_fork(tmp_path):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize('name', ['STC-UNet.py', 'U-Net.py'])
+@pytest.mark.parametrize('name', ['STC-UNet.py', 'U-Net.py', 'DC-UNet.py',
+                                  'UNet++.py', 'TransUnet.py',
+                                  'SwinUnet.py'])
 def test_config_fromfile_matches_jax(name):
     path = osp.join(REPO, 'my_config', name)
     cfg, jcfg = Config.fromfile(path), JaxConfig.fromfile(path)
@@ -109,6 +111,21 @@ def test_config_fromfile_matches_jax(name):
     jcfg.merge_from_dict(opts)
     assert cfg.to_dict() == jcfg.to_dict()
     assert cfg.pretty_text == jcfg.pretty_text
+
+
+@pytest.mark.parametrize('name,params,bn_stats', [
+    ('U-Net.py', 13395394, 7936), ('DC-UNet.py', 10811124, 34288),
+    ('UNet++.py', 17204098, 10112), ('TransUnet.py', 67865730, 17472),
+    ('SwinUnet.py', 41545318, 0)])
+def test_full_config_builds_with_the_jax_sizes(name, params, bn_stats):
+    """Each config builds at full width on the CPU with the JAX model's
+    parameter and BN running-stat counts (``jax.eval_shape`` of its init
+    at 512², counted on the CPU)."""
+    cfg = Config.fromfile(osp.join(REPO, 'my_config', name))
+    m = build_segmentor(cfg.model, test_cfg=cfg.get('test_cfg'))
+    assert sum(p.numel() for p in m.parameters()) == params
+    assert sum(b.numel() for k, b in m.named_buffers()
+               if k.endswith(('running_mean', 'running_var'))) == bn_stats
 
 
 @pytest.mark.parametrize('shape,kw', [

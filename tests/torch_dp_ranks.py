@@ -274,6 +274,30 @@ def evaluation(rank, world, cfg_path, state, root, img, gt, slide_cfg):
     return out
 
 
+def device_pipeline_draws(rank, world, samples, batch, params, seed,
+                          epochs):
+    """This rank's shard of ``samples`` through ``build_dataloader`` and
+    a ``DeviceBatchLoader`` on the CPU (its rank and world from the
+    loader's sampler): each batch's images, labels and sample indices,
+    epoch by epoch."""
+    from stc_unet_tpu_torch.datasets import build_dataloader
+    from stc_unet_tpu_torch.datasets.device_pipeline import \
+        DeviceBatchLoader
+    loader = DeviceBatchLoader(
+        build_dataloader(samples, batch, 0, dist=True, shuffle=False,
+                         seed=seed), params, seed=seed, prefetch=0,
+        device='cpu')
+    out = dict(rank=loader.rank, world=loader.world, epochs=[])
+    for epoch in range(epochs):
+        loader.set_epoch(epoch)
+        out['epochs'].append([dict(img=b['img'].numpy(),
+                                   gt=b['gt_semantic_seg'].numpy(),
+                                   idx=b['idx'][:, 0].tolist())
+                              for b in loader])
+    return out
+
+
 TARGETS = dict(train_steps=train_steps,
                batchnorm_and_helpers=batchnorm_and_helpers,
-               evaluation=evaluation)
+               evaluation=evaluation,
+               device_pipeline_draws=device_pipeline_draws)
