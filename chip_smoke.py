@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``stc_unet_tpu_torch``) on one card.
 
-Drives the port's four paths, its test path and its training path (with
+Drives the port's paths, its test path and its training path (with
 the augmentation on the host and on the card) at full width, with random weights from seed 0: STC-UNet
 (``my_config/STC-UNet.py``) and MaxViT-UNet
 (``my_config/MaxViT-UNet.py``) inference through ``init_segmentor`` and
@@ -150,7 +150,20 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
     ``monolithic_train_check``), and at torch's TF32 defaults whole B=8,
     the bs-1 p50 and the bf16 train step at B=8 (or the largest batch
     that fits, the out-of-memory error recorded) with peak memory
-    (``monolithic_timing``, ``monolithic_train``).
+    (``monolithic_timing``, ``monolithic_train``);
+15. trains rematerialised: after each train check of 6, 8 and 14, two
+    steps card vs CPU in the same bands, and against the card's plain
+    steps, in each mode (``remat_train_check``): STC-UNet with
+    ``make_train_step(remat=True)`` (K1 and K2 8 launches a step, K2b 4),
+    MaxViT-UNet's ``with_cp`` ``'block'``, ``'dots'`` and ``'attn'`` at
+    256² with a block a stage (K3f twice a step, K3b once), DC-UNet's
+    ``True`` and ``'hires'``; and after each timed step of 7, 8 and 14,
+    the same step plain and in each mode (``remat_train``: img/s and peak
+    memory; full depth, so K3f 56 and K3b 28 a MaxViT step);
+16. drives PSPNet and DeepLabv3+ (``my_config/PSPNet.py``,
+    ``my_config/DeepLabv3+.py``: ResNet-50 at output stride 8) as in 14,
+    none of which runs a kernel of the port (``resnet_slice``,
+    ``resnet_train_check``, ``resnet_timing``, ``resnet_train``).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --grad-readings 3   # GRAD_FLOORS' readings
@@ -164,6 +177,7 @@ Without CUDA, or outside a checkout of the repo, it exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import copy
 import importlib
 import json
 import math
@@ -251,6 +265,8 @@ STC_FORWARD = dict(strip_pools=4, gate_add=4)
 STC_STEP = dict(strip_pools=4, gate_add=4, gate_dots=4)
 MAXVIT_FORWARD = dict(window_attention=28)
 MAXVIT_STEP = dict(window_attention=28, window_attention_backward=28)
+MAXVIT_REMAT = ('block', 'dots', 'attn')   # MaxViT-UNet's with_cp tiers
+DC_REMAT = (True, 'hires')                  # DC-UNet's
 FLASH_FORWARD = dict(STC_FORWARD, flash_attention_forward=8)
 FLASH_STEP = dict(STC_STEP, flash_attention_forward=8,
                   flash_attention_bwd_dkv=8, flash_attention_bwd_dq=8)
@@ -343,6 +359,15 @@ NUDGE_SEEDS = tuple(range(7, 15))
 # largest error of any of its tensors in ``--grad-readings 3`` on the H100
 # (encoder.s4_bn0.bias at seed 0; PERF.md §6).
 GRAD_FLOORS = {'my_config/UNet++.py': 0.0175}
+# the ResNet-50 baselines (output stride 8): config -> train check focus
+RESNET = {'my_config/PSPNet.py': ('psp', 'decode_head.psp_modules'),
+          'my_config/DeepLabv3+.py': ('aspp', 'decode_head.aspp_modules')}
+REMAT_MODES = {'my_config/DC-UNet.py': DC_REMAT}
+
+
+# the kernels a forward launches: a rematerialised step runs them again
+FORWARD_KERNELS = ('strip_pools', 'gate_add', 'window_attention',
+                   'flash_attention_forward')
 
 
 def kernel_functions():
@@ -3142,15 +3167,18 @@ def phase_kernel_timing(torch, cf, err):
     return per
 
 
-def train_step_for(torch, model, compute_dtype=None, mesh=None):
+def train_step_for(torch, model, compute_dtype=None, mesh=None,
+                   remat=False):
     """The port's train step on model and its optimizer: bench.py's Adam
-    and poly lr (over the ranks of ``mesh``, if given)."""
+    and poly lr (over the ranks of ``mesh``, if given; rematerialising
+    the whole loss with ``remat``)."""
     from stc_unet_tpu_torch.core import build_lr_schedule, build_optimizer
     from stc_unet_tpu_torch.engine import make_train_step
     schedule = build_lr_schedule(LR_CONFIG, OPTIMIZER['lr'], MAX_ITERS)
     optimizer = build_optimizer(model, OPTIMIZER)
     return make_train_step(model, optimizer, schedule,
-                           compute_dtype=compute_dtype, mesh=mesh), optimizer
+                           compute_dtype=compute_dtype, mesh=mesh,
+                           remat=remat), optimizer
 
 
 def grad_errors(grads, ref):
@@ -3176,11 +3204,13 @@ def first_grads(torch, model, img, gt):
     return {k: p.grad.float().cpu() for k, p in model.named_parameters()}
 
 
-def nudged_grads(torch, cfg, state, img, gt, seed, prepare=None):
+def nudged_grads(torch, cfg, state, img, gt, seed, prepare=None,
+                 stats=False):
     """The first step's gradients of the port on the CPU after moving the
     image and every parameter by one part in 2^23 (one f32 ulp or less),
     up or down at random: how far f32 rounding alone moves the gradient
-    here. Taken on the CPU, so that nothing the card does widens it."""
+    here. Taken on the CPU, so that nothing the card does widens it. With
+    ``stats``, also the BN running stats after that step."""
     from stc_unet_tpu_torch.apis import init_segmentor
     g = torch.Generator().manual_seed(seed)
 
@@ -3194,7 +3224,8 @@ def nudged_grads(torch, cfg, state, img, gt, seed, prepare=None):
                            for k, v in state.items()})
     if prepare is not None:
         prepare(model)
-    return first_grads(torch, model, nudge(img), gt)
+    grads = first_grads(torch, model, nudge(img), gt)
+    return (grads, first_step(model)['stats']) if stats else grads
 
 
 def check_pair(torch, cfg, init_segmentor, size, prepare=None, seed=0):
@@ -3223,9 +3254,59 @@ def _worst(rel, k=6):
     return dict(sorted(rel.items(), key=lambda kv: -kv[1])[:k])
 
 
+def step_faults(a, b, yard_whole, yard, pixel, stats_yard=None):
+    """Run ``a`` of two train steps against run ``b`` (each a dict of the
+    steps' ``logs``, the first step's ``grads`` and BN ``stats``) in
+    ``train_check``'s bands: each step's losses to rtol 1e-5 and
+    ``acc_seg`` to 3 pixels (``pixel``, one pixel's share in %), the
+    first gradient as a whole within 3x ``yard_whole`` and each tensor
+    within 3x its own ``yard`` (the one-ulp yardsticks), the first step's
+    BN running stats to rtol 1e-4 / atol 1e-5, or, where ``stats_yard``
+    gives a tensor's one-ulp yardstick, to 3x it if that is more. Returns
+    (faults, the per-tensor gradient errors, the whole's, the stats'
+    largest error)."""
+    faults = []
+    # the losses: f32 sums in another order (rtol 1e-5); the accuracy
+    # counts pixels, and the seeded model's class margins are ~1e-3, so a
+    # few pixels near the boundary may flip: at most 3
+    for x, y in zip(a['logs'], b['logs']):
+        for k in y:
+            limit = 1e-5 * abs(y[k]) + 1e-6 if 'loss' in k else 3 * pixel
+            if not math.isfinite(x[k]) or abs(x[k] - y[k]) > limit:
+                faults.append(f'{k}: {x[k]} against {y[k]}')
+    # the gradients, |g - g_ref| / |g_ref| in 2-norms, as one vector and
+    # per tensor. Tensors whose gradient is 0 up to noise (the conv biases
+    # before a train-mode BN) are left out of the per-tensor figures: those
+    # under 1e-4 of the largest norm.
+    rel, whole = grad_errors(a['grads'], b['grads'])
+    if whole > 3 * yard_whole:
+        faults.append(f'gradient off by {whole} of its norm, over 3 x '
+                      f'{yard_whole}')
+    floor = min(yard.values())
+    faults += [f'gradient {k} off by {e} of its norm, over 3 x '
+               f'{yard.get(k, floor)}'
+               for k, e in rel.items() if e > 3 * yard.get(k, floor)]
+    # the BN running stats after the first step, which come from the
+    # forward of the same weights (rtol 1e-4, atol 1e-5); the second
+    # step's follow Adam's first update, whose sign on coordinates with a
+    # near-zero gradient is noise (tools/parity_train.py), so only its
+    # count is checked
+    stats_err = 0.0
+    for k, ref in b['stats'].items():
+        diff = (a['stats'][k] - ref).abs()
+        stats_err = max(stats_err, diff.max().item())
+        limit = 1e-5 + 1e-4 * ref.abs()
+        if stats_yard is not None:
+            limit = limit.clamp(min=3 * stats_yard[k])
+        if bool((diff > limit).any()):
+            faults.append(f'{k} off by {diff.max().item()}')
+    return faults, rel, whole, stats_err
+
+
 def phase_train_check(torch, cfg, init_segmentor, size, phase='train_check',
                       focus=('coordatt', '.ca.'), prepare=None,
-                      step2_from_cpu=False, grad_floor=GRAD_FLOOR):
+                      step2_from_cpu=False, grad_floor=GRAD_FLOOR,
+                      remat=None, stats_yard=False):
     """Two train steps at full width on the card and on the port on the
     CPU, from the same weights: ``size``² images, B=2, f32, TF32 off (set
     by main), with every dropout rate of ``cfg`` at 0 (set by the caller;
@@ -3237,9 +3318,9 @@ def phase_train_check(torch, cfg, init_segmentor, size, phase='train_check',
     correct runs drift apart after a step (in DC-UNet enough to move the
     second loss by 1.6e-5 of itself).
     Compares each step's losses, the first step's gradients and BN running
-    stats, and the step count of every BN. ``focus`` (a name and a key
-    fragment) picks the tensors of the kernels' layers for their own
-    report.
+    stats, and the step count of every BN (``step_faults``). ``focus`` (a
+    name and a key fragment) picks the tensors of the kernels' layers for
+    their own report.
 
     The gradient of the seeded full-width model at this input is touchy:
     moving the image and the weights by one f32 ulp moves it by about 1 %
@@ -3254,76 +3335,77 @@ def phase_train_check(torch, cfg, init_segmentor, size, phase='train_check',
     model (one of them moved its gradient by a third of what it moved the
     einsum model's). The kernels themselves are held tightly in phases
     ``kernels``, ``window_attention_kernels`` and
-    ``flash_attention_kernels``, their autograd included."""
+    ``flash_attention_kernels``, their autograd included. With
+    ``stats_yard`` each BN stat tensor may also be off by 3 times the
+    most the nudges move it (a BN after a convolution of a large fan-in,
+    whose batch mean is a small difference of large sums: the ResNet
+    models' PSP and ASPP bottlenecks sum 4096 and 2560 channels over 3x3).
+
+    ``remat`` (``(kern, config, make_cfg, modes)``) also runs the two
+    steps on the card in each rematerialised mode: ``'loss'`` is
+    ``make_train_step(remat=True)``, any other mode the model of
+    ``make_cfg(mode)`` (its ``with_cp``), from the same weights (and, with
+    ``step2_from_cpu``, the same second start). Each is held in the same
+    bands to the CPU and to the card's plain steps, its BN counts must be
+    2, and each step must launch the forward kernels twice and the
+    backward ones once as often as the plain step (``remat_launches``);
+    one ``remat_train_check`` line."""
     card, cpu, cpu_state, img, gt = check_pair(torch, cfg, init_segmentor,
                                                size, prepare)
     (card_step, card_opt), (cpu_step, cpu_opt) = (
         train_step_for(torch, card), train_step_for(torch, cpu))
-    steps = {'card': card_step, 'cpu': cpu_step}
-    models = {'card': card, 'cpu': cpu}
-    logs, grads, stats = {'card': [], 'cpu': []}, {}, {}
+    kern = None if remat is None else remat[0]
+    runs = {'card': dict(logs=[], counts=[]), 'cpu': dict(logs=[])}
+    start2 = None
     for i in range(2):
-        for where in ('card', 'cpu'):
+        for where, model, step in (('card', card, card_step),
+                                   ('cpu', cpu, cpu_step)):
             dev = 'cuda' if where == 'card' else 'cpu'
             if i == 1 and where == 'card' and step2_from_cpu:
-                card.load_state_dict(cpu.state_dict())
-                card_opt.load_state_dict(cpu_opt.state_dict())
-            lv = steps[where](img.to(dev), gt.to(dev))
-            logs[where].append({k: v.item() for k, v in lv.items()})
+                # copies: the CPU's second step updates its tensors in place
+                start2 = ({k: v.clone() for k, v in
+                           cpu.state_dict().items()},
+                          copy.deepcopy(cpu_opt.state_dict()))
+                card.load_state_dict(start2[0])
+                card_opt.load_state_dict(start2[1])
+            if kern is not None:
+                reset_counts(kern)
+            lv = step(img.to(dev), gt.to(dev))
+            if where == 'card' and kern is not None:
+                runs[where]['counts'].append(read_counts(kern))
+            runs[where]['logs'].append({k: v.item() for k, v in lv.items()})
             if i == 0:
-                grads[where] = {k: p.grad.float().cpu() for k, p in
-                                models[where].named_parameters()}
-                stats[where] = {k: v.cpu().clone() for k, v in
-                                models[where].state_dict().items()
-                                if k.endswith(('running_mean',
-                                               'running_var'))}
-    # the losses: f32 sums in another order (rtol 1e-5); the accuracy
-    # counts pixels, and the seeded model's class margins are ~1e-3, so a
-    # few pixels near the boundary may flip: at most 3
+                runs[where].update(first_step(model))
     faults = []
     pixel = 100.0 / int((gt != 255).sum())
-    for a, b in zip(logs['card'], logs['cpu']):
-        for k in b:
-            limit = 1e-5 * abs(b[k]) + 1e-6 if 'loss' in k else 3 * pixel
-            if not math.isfinite(a[k]) or abs(a[k] - b[k]) > limit:
-                faults.append(f'{k}: card {a[k]} cpu {b[k]}')
-    # the gradients, |g - g_ref| / |g_ref| in 2-norms, as one vector and
-    # per tensor. Tensors whose gradient is 0 up to noise (the conv biases
-    # before a train-mode BN) are left out of the per-tensor figures: those
-    # under 1e-4 of the largest norm.
-    rel, whole = grad_errors(grads['card'], grads['cpu'])
-    nudged = [grad_errors(nudged_grads(torch, cfg, cpu_state, img, gt, s,
-                                       prepare), grads['cpu'])
-              for s in NUDGE_SEEDS]
+    nudged, syard = [], None
+    for s in NUDGE_SEEDS:
+        grads, stats = nudged_grads(torch, cfg, cpu_state, img, gt, s,
+                                    prepare, stats=True)
+        nudged.append(grad_errors(grads, runs['cpu']['grads']))
+        if stats_yard:
+            moved = {k: (v - runs['cpu']['stats'][k]).abs().max().item()
+                     for k, v in stats.items()}
+            syard = moved if syard is None else {
+                k: max(v, moved[k]) for k, v in syard.items()}
     yard_whole = max(w for _, w in nudged)
-    yard = {k: max(grad_floor, *(r[k] for r, _ in nudged)) for k in rel}
-    if whole > 3 * yard_whole:
-        faults.append(f'gradient off by {whole} of its norm, over 3 x '
-                      f'{yard_whole}')
-    faults += [f'gradient {k} off by {e} of its norm, over 3 x {yard[k]}'
-               for k, e in rel.items() if e > 3 * yard[k]]
+    yard = {k: max(grad_floor, *(r[k] for r, _ in nudged))
+            for k in nudged[0][0]}
+    found, rel, whole, stats_err = step_faults(
+        runs['card'], runs['cpu'], yard_whole, yard, pixel, syard)
+    faults += found
     ratio = {k: e / yard[k] for k, e in rel.items()}
     name, part = focus
     focused = {k: e for k, e in rel.items() if part in k}
-    # the BN running stats after the first step, which come from the
-    # forward of the same weights (rtol 1e-4, atol 1e-5); the second
-    # step's follow Adam's first update, whose sign on coordinates with a
-    # near-zero gradient is noise (tools/parity_train.py), so only its
-    # count is checked
-    stats_err = 0.0
-    for k, ref in stats['cpu'].items():
-        diff = (stats['card'][k] - ref).abs()
-        stats_err = max(stats_err, diff.max().item())
-        if bool((diff > 1e-5 + 1e-4 * ref.abs()).any()):
-            faults.append(f'{k} off by {diff.max().item()}')
     for m in (card, cpu):
         for k, v in m.state_dict().items():
             if k.endswith('num_batches_tracked') and int(v) != 2:
                 faults.append(f'{k}: {int(v)}, want 2')
     emit(phase, ok=not faults, faults=faults[:8], size=size, batch=2,
          dtype='float32', tf32=False, step2_from_cpu=step2_from_cpu,
-         dropout_ratio=0.0, losses=logs,
-         grad_tensors=len(grads['cpu']), grad_tensors_compared=len(rel),
+         dropout_ratio=0.0, losses={k: r['logs'] for k, r in runs.items()},
+         grad_tensors=len(runs['cpu']['grads']),
+         grad_tensors_compared=len(rel),
          grad_whole=whole, grad_tensor_median=statistics.median(rel.values()),
          grad_worst=_worst(rel),
          **{f'grad_{name}_worst': _worst(focused, 4),
@@ -3338,27 +3420,103 @@ def phase_train_check(torch, cfg, init_segmentor, size, phase='train_check',
                                 for r, _ in nudged],
          one_ulp_worst=[_worst(r, 3) for r, _ in nudged],
          bn_stats_step1_max_abs_err=stats_err,
+         bn_stats_one_ulp_worst=None if syard is None else _worst(syard, 4),
          tolerance=f'losses rtol 1e-5; acc_seg within 3 pixels; gradient '
                    f'as a whole within 3x the largest of '
                    f'{len(NUDGE_SEEDS)} one-ulp wholes, each tensor within '
                    f'3x the largest of its own {len(NUDGE_SEEDS)} one-ulp '
                    f'changes (at least {grad_floor}), nudges on the CPU; '
-                   f'step-1 BN stats rtol 1e-4 atol 1e-5')
+                   f'step-1 BN stats rtol 1e-4 atol 1e-5' +
+                   ('' if syard is None else
+                    ', or 3x their own one-ulp change if more'))
     if faults:
         raise AssertionError(f'{phase}: {faults[:3]}')
-    del card, cpu, steps, models, card_opt, cpu_opt
+    del card, card_step, card_opt
+    torch.cuda.empty_cache()
+    if remat is not None:
+        remat_checks(torch, init_segmentor, remat, cfg, cpu_state, img, gt,
+                     prepare, start2, runs, yard_whole, yard, pixel, syard)
+    del cpu, cpu_step, cpu_opt
     torch.cuda.empty_cache()
 
 
+def first_step(model):
+    """The first step's gradients and BN running stats, on the CPU."""
+    return dict(grads={k: p.grad.float().cpu() for k, p in
+                       model.named_parameters()},
+                stats={k: v.cpu().clone() for k, v in
+                       model.state_dict().items()
+                       if k.endswith(('running_mean', 'running_var'))})
+
+
+def remat_launches(plain):
+    """A rematerialised step's launches: the forward kernels run again in
+    the backward's recompute, the backward ones once."""
+    return {k: n * (2 if k in FORWARD_KERNELS else 1)
+            for k, n in plain.items()}
+
+
+def remat_checks(torch, init_segmentor, remat, cfg, state, img, gt,
+                 prepare, start2, runs, yard_whole, yard, pixel, syard):
+    """``phase_train_check``'s rematerialised modes (see there)."""
+    kern, config, make_cfg, modes = remat
+    faults, results = [], {}
+    for mode in modes:
+        model = init_segmentor(cfg if mode == 'loss' else make_cfg(mode))
+        model.load_state_dict(state)
+        if prepare is not None:
+            prepare(model)
+        step, opt = train_step_for(torch, model, remat=mode == 'loss')
+        run = dict(logs=[], counts=[])
+        for i in range(2):
+            if i == 1 and start2 is not None:
+                model.load_state_dict(start2[0])
+                opt.load_state_dict(start2[1])
+            reset_counts(kern)
+            lv = step(img.cuda(), gt.cuda())
+            run['counts'].append(read_counts(kern))
+            run['logs'].append({k: v.item() for k, v in lv.items()})
+            if i == 0:
+                run.update(first_step(model))
+        row = dict(launches_per_step=run['counts'][0], losses=run['logs'])
+        for against in ('cpu', 'card'):
+            found, rel, whole, stats_err = step_faults(
+                run, runs[against], yard_whole, yard, pixel, syard)
+            faults += [f'{mode} against the {against}: {f}' for f in found]
+            row[f'against_{against}'] = dict(
+                grad_whole=whole, grad_worst=_worst(rel, 3),
+                bn_stats_step1_max_abs_err=stats_err)
+        want = [remat_launches(c) for c in runs['card']['counts']]
+        if run['counts'] != want:
+            faults.append(f'{mode}: launches {run["counts"]}, want {want}')
+        faults += [f'{mode}: {k} {int(v)}, want 2'
+                   for k, v in model.state_dict().items()
+                   if k.endswith('num_batches_tracked') and int(v) != 2]
+        results[mode] = row
+        del model, step, opt
+        torch.cuda.empty_cache()
+    emit('remat_train_check', ok=not faults, faults=faults[:8],
+         config=config, size=int(img.shape[1]), batch=2, dtype='float32',
+         tf32=False,
+         plain_launches_per_step=runs['card']['counts'][0], modes=results,
+         tolerance="train_check's bands, against the CPU's plain steps and "
+                   "the card's; launches: the forward kernels twice")
+    if faults:
+        raise AssertionError(f'remat_train_check: {faults[:3]}')
+
+
 def phase_train(torch, kern, model, settings, config, expected,
-                dropout_ratio, phase='train', batch=TRAIN_BATCH):
+                dropout_ratio, phase='train', batch=TRAIN_BATCH, remat=False,
+                profile=True):
     """bench.py's train step on the full-width model: ``batch`` (B=8)
     images at 512², bf16 compute, Adam lr 1e-5 with the poly lr, the
-    config's dropout from a seeded generator. Per TF32 setting ``(label, cudnn, matmul)``: 2
-    warm-up steps, each checked to launch the kernels ``expected`` times,
-    then 10 steps timed with one CUDA event pair; the loss must be finite
-    and every parameter must move. The first setting's run is profiled by
-    kernel group. Returns the launches of all steps."""
+    config's dropout from a seeded generator (``remat``: the step
+    rematerialises its whole loss). Per TF32 setting ``(label, cudnn,
+    matmul)``: 2 warm-up steps, each checked to launch the kernels
+    ``expected`` times, then 10 steps timed with one CUDA event pair; the
+    loss must be finite and every parameter must move. With ``profile``
+    the first setting's run is profiled by kernel group. Returns the
+    launches of all steps."""
     g = torch.Generator(device='cuda').manual_seed(5)
     img = torch.rand((batch, 512, 512, 3), generator=g, device='cuda')
     gt = (img.mean(-1) > 0.5).long()
@@ -3369,7 +3527,7 @@ def phase_train(torch, kern, model, settings, config, expected,
     rows = []
     for label, cudnn, matmul in settings:
         set_tf32(torch, cudnn, matmul)
-        step, _ = train_step_for(torch, model, torch.bfloat16)
+        step, _ = train_step_for(torch, model, torch.bfloat16, remat=remat)
         before = {k: p.detach().clone() for k, p in params.items()}
         torch.cuda.reset_peak_memory_stats()
         losses = []
@@ -3410,18 +3568,78 @@ def phase_train(torch, kern, model, settings, config, expected,
                          matmul_allow_tf32=matmul, step_ms=ms,
                          img_per_s=batch * 1e3 / ms,
                          peak_mem_gb=peak / 1e9, losses=losses.tolist()))
-        if len(rows) == 1:
+        if profile and len(rows) == 1:
             emit('profile', run=f'{phase} step', config=config, batch=batch,
                  tf32=label,
                  **profile_run(torch, lambda: step(img, gt, drop), ms))
     set_tf32(torch, False, False)
-    emit(phase, ok=True, config=config, batch=batch,
+    emit(phase, ok=True, config=config, batch=batch, remat=remat,
          size=512, compute_dtype='bfloat16', optimizer=OPTIMIZER,
          lr_config=LR_CONFIG, max_iters=MAX_ITERS,
          dropout_ratio=dropout_ratio,
          timer='one CUDA event pair over 10 steps after 2 warm-up steps',
          launches_per_step=want, rows=rows)
     return launches
+
+
+def maxvit_cfg(Config, with_cp=False, one_block=False):
+    """``my_config/MaxViT-UNet.py`` with ``with_cp`` in the encoder and the
+    decoder; ``one_block``: as its train checks build it, a block a stage
+    and every dropout rate at 0."""
+    cfg = Config.fromfile(os.path.join(REPO, MAXVIT_CONFIG))
+    for part in (cfg.model.backbone, cfg.model.decode_head):
+        part.with_cp = with_cp
+        if one_block:
+            part.update(attn_drop=0.0, drop=0.0, drop_path=0.0)
+    if one_block:
+        cfg.model.backbone.depths = (1, 1, 1, 1)
+        cfg.model.decode_head.update(depths=(1, 1, 1), dropout_ratio=0.0)
+    return cfg
+
+
+def phase_remat_train(torch, kern, model, config, expected, modes,
+                      make_model, tf32, dropout_ratio):
+    """``remat_train``: bench.py's train step (``phase_train``: B=8 at
+    512², bf16, the config's dropout, one CUDA event pair over 10 steps
+    after 2 warm-up steps) on ``model``'s weights, plain and in each
+    rematerialised mode: ``'loss'`` rematerialises the whole loss
+    (``make_train_step(remat=True)``), any other mode is the model
+    ``make_model(mode)`` (its ``with_cp``). One line each, with img/s and
+    the peak memory; the plain step must launch the kernels ``expected``
+    times, a rematerialised one the forward kernels twice. ``model``'s
+    weights and buffers are put back as they came, so the phases after
+    this one see the model the earlier ones trained. Returns the
+    launches."""
+    launches = dict.fromkeys(KERNELS, 0)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    for mode in (None,) + tuple(modes):
+        m = model if mode in (None, 'loss') else make_model(mode)
+        label = config if mode is None else (
+            f'{config} remat=True' if mode == 'loss'
+            else f'{config} with_cp={mode!r}')
+        ran = phase_train(torch, kern, m, [tf32], label,
+                          expected if mode is None
+                          else remat_launches(per_call(expected)),
+                          dropout_ratio, phase='remat_train',
+                          remat=mode == 'loss', profile=False)
+        for name in KERNELS:
+            launches[name] += ran[name]
+        if m is not model:
+            del m
+        model.load_state_dict(state)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+    return launches
+
+
+def with_cp_model(init_segmentor, make_cfg, model):
+    """``make_model`` of ``phase_remat_train``: the model of
+    ``make_cfg(mode)`` with ``model``'s weights."""
+    def make(mode):
+        m = init_segmentor(make_cfg(mode))
+        m.load_state_dict(model.state_dict(), strict=True)
+        return m
+    return make
 
 
 def monolithic_ready(model):
@@ -3493,9 +3711,11 @@ def grad_readings(torch, init_segmentor, Config, seeds):
             torch.cuda.empty_cache()
 
 
-def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi):
-    """U-Net and the paper's monolithic baselines (``MONOLITHIC``), each
-    at full width from seed 0 and none running a kernel of the port:
+def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi,
+                     configs=MONOLITHIC, prefix='monolithic'):
+    """U-Net and the paper's monolithic baselines (``MONOLITHIC``), or
+    the ResNet-50 baselines (``RESNET``, with ``prefix`` ``'resnet'``),
+    each at full width from seed 0 and none running a kernel of the port:
 
     - ``monolithic_slice``: whole requests of B=2 at 512² in bf16 through
       the entry point, no kernel launched, the card's f32 logits (TF32
@@ -3515,12 +3735,15 @@ def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi):
       the bs-1 p50 (``whole_and_p50``) with the peak memory, and the bf16
       train step (``phase_train``, the config's dropout) at B=8, or, when
       that runs out of memory, at the largest of 4, 2, 1 that fits, with
-      the error recorded.
+      the error recorded;
+    - for a config with ``with_cp`` tiers (``REMAT_MODES``: DC-UNet), the
+      train check in each tier (``remat_train_check``) and the timed step
+      plain and in each tier (``remat_train``).
 
     Returns the launches (all 0)."""
     launches = dict.fromkeys(KERNELS, 0)
     label, cudnn, matmul = tf32
-    for config, focus in MONOLITHIC.items():
+    for config, focus in configs.items():
         path = os.path.join(REPO, config)
         swin = 'SwinUnet' in config
         model = init_segmentor(Config.fromfile(path))
@@ -3532,14 +3755,24 @@ def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi):
             return m
 
         served = phase_slice(torch, kern, model, cpu_model, config,
-                             ('whole',), {}, phase='monolithic_slice',
+                             ('whole',), {}, phase=f'{prefix}_slice',
                              check_size=512 if swin else 256,
                              margin_floor=1e-5)
+        modes = REMAT_MODES.get(config, ())
+
+        def with_cp_cfg(mode, check=True):
+            cfg = monolithic_check_cfg(Config, config) if check else \
+                Config.fromfile(path)
+            cfg.model.decode_head.with_cp = mode
+            return cfg
+
         phase_train_check(torch, monolithic_check_cfg(Config, config),
-                          init_segmentor, 64, phase='monolithic_train_check',
+                          init_segmentor, 64, phase=f'{prefix}_train_check',
                           focus=focus, prepare=monolithic_ready,
                           step2_from_cpu=True,
-                          grad_floor=GRAD_FLOORS.get(config, GRAD_FLOOR))
+                          grad_floor=GRAD_FLOORS.get(config, GRAD_FLOOR),
+                          remat=(kern, config, with_cp_cfg, modes)
+                          if modes else None, stats_yard=config in RESNET)
         set_tf32(torch, cudnn, matmul)
         g = torch.Generator(device='cuda').manual_seed(3)
         img = torch.rand((8, 512, 512, 3), generator=g,
@@ -3549,7 +3782,7 @@ def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi):
         whole_ms, p50 = whole_and_p50(torch, model, img)
         peak = torch.cuda.max_memory_allocated()
         counts = read_counts(kern)
-        emit('profile', run='monolithic whole', config=config, batch=8,
+        emit('profile', run=f'{prefix} whole', config=config, batch=8,
              tf32=label, **profile_run(torch, lambda: model.whole_inference(
                  img, None, False), whole_ms))
         del img
@@ -3559,7 +3792,7 @@ def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi):
         for batch in (TRAIN_BATCH, 4, 2, 1):
             try:
                 trained = phase_train(torch, kern, model, [tf32], config, {},
-                                      'the config\'s', 'monolithic_train',
+                                      'the config\'s', f'{prefix}_train',
                                       batch=batch)
                 break
             except torch.cuda.OutOfMemoryError as e:
@@ -3571,7 +3804,15 @@ def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi):
             raise AssertionError(f'{config}: no train batch fits: {oom}')
         if any(counts.values()):
             raise AssertionError(f'{config}: launched {counts}')
-        emit('monolithic_timing', config=config, image='bf16 512x512',
+        if modes:
+            ran = phase_remat_train(
+                torch, kern, model, config, {}, modes,
+                with_cp_model(init_segmentor,
+                              lambda mode: with_cp_cfg(mode, False), model),
+                tf32, "the config's")
+            for name in KERNELS:
+                launches[name] += ran[name]
+        emit(f'{prefix}_timing', config=config, image='bf16 512x512',
              tf32=label, cudnn_allow_tf32=cudnn, matmul_allow_tf32=matmul,
              nvidia_smi=smi, whole_ms_b8=whole_ms,
              whole_slices_per_s=8e3 / whole_ms, p50_ms_bs1=p50,
@@ -3757,11 +3998,17 @@ def main(argv=None):
     # 6. and 7. the train step
     cfg = stc_cfg()
     cfg.model.decode_head.dropout_ratio = 0.0
-    phase_train_check(torch, cfg, init_segmentor, 64)
+    phase_train_check(torch, cfg, init_segmentor, 64,
+                      remat=(kern, STC_CONFIG, None, ('loss',)))
     trained = phase_train(torch, kern, model,
                           [('torch default',) + default_tf32,
                            ('off', False, False), ('on', True, True)],
                           STC_CONFIG, STC_STEP, 0.1)
+    for name in KERNELS:
+        launches[name] += trained[name]
+    trained = phase_remat_train(torch, kern, model, STC_CONFIG, STC_STEP,
+                                ('loss',), None,
+                                ('torch default',) + default_tf32, 0.1)
     for name in KERNELS:
         launches[name] += trained[name]
 
@@ -3803,19 +4050,24 @@ def main(argv=None):
     per.update(phase_window_attention_timing(torch, wa, err))
     # two steps card vs CPU at 256², the least size the /32 stage's 8x8
     # windows take, with one block per stage to keep the CPU side short
-    cfg = Config.fromfile(mv_path)
-    for part in (cfg.model.backbone, cfg.model.decode_head):
-        part.update(attn_drop=0.0, drop=0.0, drop_path=0.0)
-    cfg.model.backbone.depths = (1, 1, 1, 1)
-    cfg.model.decode_head.update(depths=(1, 1, 1), dropout_ratio=0.0)
-    phase_train_check(torch, cfg, init_segmentor, 256,
-                      phase='maxvit_train_check',
-                      focus=('attention', '.attention.'))
+    phase_train_check(torch, maxvit_cfg(Config, one_block=True),
+                      init_segmentor, 256, phase='maxvit_train_check',
+                      focus=('attention', '.attention.'),
+                      remat=(kern, f'{MAXVIT_CONFIG} (a block a stage)',
+                             lambda mode: maxvit_cfg(Config, mode, True),
+                             MAXVIT_REMAT))
     trained = phase_train(torch, kern, model,
                           [('torch default',) + default_tf32], MAXVIT_CONFIG,
                           MAXVIT_STEP, 0.1, phase='maxvit_train')
     for name in KERNELS:
         launches[name] += served[name] + trained[name]
+    trained = phase_remat_train(
+        torch, kern, model, MAXVIT_CONFIG, MAXVIT_STEP, MAXVIT_REMAT,
+        with_cp_model(init_segmentor,
+                      lambda mode: maxvit_cfg(Config, mode), model),
+        ('torch default',) + default_tf32, 0.1)
+    for name in KERNELS:
+        launches[name] += trained[name]
     del model
     torch.cuda.empty_cache()
 
@@ -3823,6 +4075,12 @@ def main(argv=None):
     # kernel still held above
     ran = phase_monolithic(torch, kern, init_segmentor, Config,
                            ('torch default',) + default_tf32, smi)
+    for name in KERNELS:
+        launches[name] += ran[name]
+    # 15. PSPNet and DeepLabv3+ (ResNet-50, output stride 8): no kernel
+    ran = phase_monolithic(torch, kern, init_segmentor, Config,
+                           ('torch default',) + default_tf32, smi, RESNET,
+                           'resnet')
     for name in KERNELS:
         launches[name] += ran[name]
 

@@ -78,10 +78,6 @@ def _refuse_unported(cfg, distributed):
         raise RuntimeError('train_segmentor(distributed=True) needs the '
                            'process group of the ranks: call '
                            'utils.init_dist first')
-    if cfg.get('remat'):
-        raise NotImplementedError(
-            'remat is not ported yet (ROADMAP.md §1, Item R: the recomputed '
-            'forward would update the BN running stats twice)')
 
 
 def _device_pipeline(cfg, data_loaders, datasets, seed, device, logger):
@@ -146,7 +142,8 @@ def train_segmentor(model, dataset, cfg, distributed=False, validate=False,
                           logger=logger, meta=meta, seed=seed,
                           compute_dtype=compute_dtype,
                           mesh=default_data_mesh() if distributed
-                          else None))
+                          else None,
+                          remat=bool(cfg.get('remat', False))))
     if timestamp is not None:
         runner.timestamp = timestamp
 

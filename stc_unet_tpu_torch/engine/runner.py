@@ -61,12 +61,13 @@ class BaseRunner:
     device, ``optimizer`` a ``torch.optim`` optimizer over its parameters
     (``core.build_optimizer``), ``lr_schedule`` a ``schedule(k) -> lr``
     (``core.build_lr_schedule``) or None to keep the groups' lr,
-    ``mesh`` the data mesh of a data-parallel run
-    (``engine.make_train_step``)."""
+    ``mesh`` the data mesh of a data-parallel run and ``remat`` the
+    rematerialised step (``engine.make_train_step``)."""
 
     def __init__(self, model, optimizer, lr_schedule: Optional[Callable] = None,
                  work_dir=None, logger=None, meta=None, max_epochs=None,
-                 max_iters=None, seed=0, compute_dtype=None, mesh=None):
+                 max_iters=None, seed=0, compute_dtype=None, mesh=None,
+                 remat=False):
         self.model = model
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
@@ -99,7 +100,7 @@ class BaseRunner:
             (lambda k: lr_schedule(self._schedule_base + k))
         self._train_step = make_train_step(model, optimizer, schedule,
                                            compute_dtype=compute_dtype,
-                                           mesh=mesh)
+                                           mesh=mesh, remat=remat)
         self._val_step = make_val_step(model, mesh=mesh)
 
     # -- properties ----------------------------------------------------------

@@ -38,6 +38,7 @@ import torch.distributed as dist
 
 from stc_unet_tpu_torch.models.bricks import BatchNorm
 from stc_unet_tpu_torch.models.losses.utils import total_loss_from_dict
+from stc_unet_tpu_torch.models.remat import checkpoint
 from stc_unet_tpu_torch.utils.util_distribution import (broadcast_tensors,
                                                         mesh_group)
 
@@ -55,14 +56,13 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     Each call puts the model in train mode. Without ``schedule`` the
     groups keep their lr. ``mesh`` (a ``('data',)`` device mesh or a
     process group) makes it the data-parallel step of the module's
-    docstring; a mesh of one rank changes nothing.
+    docstring; a mesh of one rank changes nothing. ``remat``
+    rematerialises the whole ``compute_losses`` call in the backward, as
+    the JAX step's ``jax.checkpoint(loss_fn)`` does
+    (``models/remat.py``: the BN running stats, the generator's draws and
+    the log vars are those of the step without it).
     """
     group = mesh_group(mesh)
-    if remat:
-        raise NotImplementedError(
-            'remat is not ported yet: under torch.utils.checkpoint the '
-            'recomputed forward would update the BN running stats twice '
-            '(ROADMAP.md)')
     if group is not None:
         broadcast_tensors(list(model.parameters()) + list(model.buffers()),
                           group)
@@ -79,7 +79,10 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
         img = model._as_input(img)
         if compute_dtype is not None:
             img = img.to(compute_dtype)
-        losses = model.compute_losses(img, gt, generator)
+        if remat:
+            losses = checkpoint(model.compute_losses, img, gt, generator)
+        else:
+            losses = model.compute_losses(img, gt, generator)
         total, log_vars = total_loss_from_dict(losses)
         optimizer.zero_grad(set_to_none=True)
         total.backward()

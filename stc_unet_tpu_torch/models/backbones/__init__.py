@@ -1,4 +1,5 @@
 from .maxvit_encoder import MaxViT
+from .resnet import ResNet, ResNetV1c, ResNetV1d
 from .unet_backbone import UnetBackbone
 
-__all__ = ['MaxViT', 'UnetBackbone']
+__all__ = ['MaxViT', 'ResNet', 'ResNetV1c', 'ResNetV1d', 'UnetBackbone']

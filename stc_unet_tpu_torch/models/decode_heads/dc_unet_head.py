@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..bricks import BatchNorm, Conv2d, ConvTranspose2d, Dropout
 from ..builder import HEADS
+from ..remat import checkpoint
 from .decode_head import BaseDecodeHead
 
 _ACTIVATIONS = {None: nn.Identity, 'relu': nn.ReLU, 'sigmoid': nn.Sigmoid,
@@ -152,11 +153,13 @@ class DC_Unet(BaseDecodeHead):
     ``feature_channels``. It ends in its tanh ``conv10``, without
     ``cls_seg``.
 
-    ``with_cp`` (``True`` or ``'hires'``: JAX rematerialises the blocks in
-    the backward) raises in training, because rematerialising is not
-    ported: under ``torch.utils.checkpoint`` the recomputed forward would
-    update the BN running stats twice (ROADMAP.md §1, Item R). In eval, as
-    in JAX, it changes nothing."""
+    ``with_cp`` rematerialises blocks in the backward (JAX
+    ``DC_Unet._blk``, ``models/remat.py``): ``True`` every ``DCBlock`` and
+    ``ResPath``; ``'hires'`` those at or above quarter resolution, the top
+    two encoder scales (``mres_block1``, ``res_path1``, ``mres_block2``,
+    ``res_path2``) and the two decoder blocks that match them
+    (``mres_block8``, ``mres_block9``). Only in training with gradients;
+    in eval, as in JAX, it changes nothing."""
 
     def __init__(self, nf: int = 32, use_dropout: bool = False,
                  with_cp: Any = False, feature_channels: int = 3, **kwargs):
@@ -183,28 +186,33 @@ class DC_Unet(BaseDecodeHead):
         self.conv10 = ConvBn(d(nf), self.final_out_channels, 1,
                              activation='tanh')
 
+    def _blk(self, module, *args, hi: bool = False):
+        remat = self.with_cp is True or (self.with_cp == 'hires' and hi)
+        if remat and self.training:
+            return checkpoint(module, *args)
+        return module(*args)
+
     def forward(self, x, generator: Optional[torch.Generator] = None):
-        if self.training and (self.with_cp is True or
-                              self.with_cp == 'hires'):
-            raise NotImplementedError(
-                f'DC_Unet with_cp={self.with_cp!r} is not ported yet '
-                '(ROADMAP.md §1, Item R): under torch.utils.checkpoint the '
-                'recomputed forward would update the BN running stats twice')
-        m1 = self.mres_block1(x)
+        blk = self._blk
+        m1 = blk(self.mres_block1, x, hi=True)
         pool = F.max_pool2d(m1, 2)
-        m1 = self.res_path1(m1)
-        m2 = self.mres_block2(pool)
+        m1 = blk(self.res_path1, m1, hi=True)
+        m2 = blk(self.mres_block2, pool, hi=True)
         pool = F.max_pool2d(m2, 2)
-        m2 = self.res_path2(m2)
-        m3 = self.mres_block3(pool)
+        m2 = blk(self.res_path2, m2, hi=True)
+        m3 = blk(self.mres_block3, pool)
         pool = F.max_pool2d(m3, 2)
-        m3 = self.res_path3(m3)
-        m4 = self.mres_block4(pool)
+        m3 = blk(self.res_path3, m3)
+        m4 = blk(self.mres_block4, pool)
         pool = F.max_pool2d(m4, 2)
-        m4 = self.res_path4(m4)
-        m = self.mres_block5(pool)
-        m = self.mres_block6(torch.cat([self.deconv1(m), m4], 1), generator)
-        m = self.mres_block7(torch.cat([self.deconv2(m), m3], 1), generator)
-        m = self.mres_block8(torch.cat([self.deconv3(m), m2], 1), generator)
-        m = self.mres_block9(torch.cat([self.deconv4(m), m1], 1))
+        m4 = blk(self.res_path4, m4)
+        m = blk(self.mres_block5, pool)
+        m = blk(self.mres_block6, torch.cat([self.deconv1(m), m4], 1),
+                generator)
+        m = blk(self.mres_block7, torch.cat([self.deconv2(m), m3], 1),
+                generator)
+        m = blk(self.mres_block8, torch.cat([self.deconv3(m), m2], 1),
+                generator, hi=True)
+        m = blk(self.mres_block9, torch.cat([self.deconv4(m), m1], 1),
+                hi=True)
         return self.conv10(m)

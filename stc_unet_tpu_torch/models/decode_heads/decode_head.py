@@ -19,6 +19,9 @@ from ..builder import build_loss
 from ..losses import accuracy
 
 
+_RELU = dict(type='ReLU')
+
+
 def _default_loss():
     return dict(type='CrossEntropyLoss', use_sigmoid=False, loss_weight=1.0)
 
@@ -47,7 +50,7 @@ class BaseDecodeHead(nn.Module):
                  threshold: Optional[float] = None,
                  dropout_ratio: float = 0.1, conv_cfg: Optional[dict] = None,
                  norm_cfg: Optional[dict] = None,
-                 act_cfg: Optional[dict] = None, in_index: Any = -1,
+                 act_cfg: Optional[dict] = _RELU, in_index: Any = -1,
                  input_transform: Optional[str] = None,
                  loss_decode: Any = None, ignore_index: int = 255,
                  sampler: Optional[dict] = None, align_corners: bool = False,
@@ -74,6 +77,9 @@ class BaseDecodeHead(nn.Module):
                 'in_index must be an int without input_transform'
         self.num_classes = num_classes
         self.in_channels = in_channels
+        self.conv_cfg = conv_cfg
+        self.norm_cfg = norm_cfg
+        self.act_cfg = None if act_cfg is None else dict(act_cfg)
         self.channels = channels
         self.out_channels = out_channels
         self.threshold = threshold
@@ -99,6 +105,21 @@ class BaseDecodeHead(nn.Module):
             _, thr = resolve_out_channels(self.num_classes, self.out_channels,
                                           self.threshold)
         return thr
+
+    def _input_channels(self, feature_channels=None) -> int:
+        """The width of what ``_transform_inputs`` gives: from the
+        backbone's ``feature_channels`` where the segmentor hands them
+        down, as the JAX modules infer it, else from ``in_channels``."""
+        widths = self.in_channels if feature_channels is None else None
+        if self.input_transform == 'resize_concat':
+            return sum(widths if widths is not None else
+                       [feature_channels[i] for i in self.in_index])
+        if widths is not None:
+            return widths
+        idx = self.in_index
+        if not isinstance(idx, int):
+            idx = idx[0] if len(idx) == 1 else -1
+        return feature_channels[idx]
 
     def _init_cls_seg(self, in_channels: int):
         """Dropout2d + 1x1 conv classifier over ``in_channels`` features."""

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from stc_unet_tpu_torch.ops.window_attention import window_attention
 from ..bricks import BatchNorm, Conv2d, Dropout, LayerNorm, Linear
+from ..remat import checkpoint
 from .swin_core import DropPath, init_bias_table_, relative_position_index
 
 
@@ -235,25 +236,45 @@ class MaxViTBlock(nn.Module):
         self.grid_transformer = MaxViTTransformerBlock(out_channels, 'grid',
                                                        *args)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                remat_attn: bool = False):
+        """``remat_attn`` (``with_cp='attn'``, in training) recomputes the
+        two attention transformers in the backward, each on its own;
+        MBConv's activations stay saved."""
         x = self.mb_conv(x, generator).permute(0, 2, 3, 1)     # NHWC view
-        x = self.block_transformer(x, generator)
-        return self.grid_transformer(x, generator).permute(0, 3, 1, 2)
+        if remat_attn and self.training:
+            x = checkpoint(self.block_transformer, x, generator)
+            x = checkpoint(self.grid_transformer, x, generator)
+        else:
+            x = self.grid_transformer(self.block_transformer(x, generator),
+                                      generator)
+        return x.permute(0, 3, 1, 2)
 
 
 def apply_maxvit_block(block: MaxViTBlock, x, with_cp=False,
                        generator: Optional[torch.Generator] = None):
-    """Apply a MaxViTBlock. Only ``with_cp=False`` trains: rematerialising
-    (``True``/``'block'``, ``'dots'``, ``'attn'``) is not ported, because
-    under ``torch.utils.checkpoint`` the recomputed forward would update
-    the BN running stats twice. In eval, as in JAX, ``with_cp`` changes
-    nothing."""
-    if with_cp and block.training:
-        raise NotImplementedError(
-            f'with_cp={with_cp!r} is not ported yet: under '
-            'torch.utils.checkpoint the recomputed forward would update the '
-            'BN running stats twice (ROADMAP.md)')
-    return block(x, generator)
+    """Apply a MaxViTBlock, rematerialising in the backward as ``with_cp``
+    says (JAX ``maxvit_core.py:221-240``; ``models/remat.py``):
+
+    - ``False``: no remat;
+    - ``True`` / ``'block'``: the whole block, only its input saved;
+    - ``'dots'``: the whole block with the results of its plain matrix
+      products (qkv, proj, the MLP) saved, JAX's
+      ``dots_with_no_batch_dims_saveable``; the rest, K3f among it, is
+      recomputed;
+    - ``'attn'``: the two attention transformers, each on its own.
+
+    In eval, as in JAX, ``with_cp`` changes nothing."""
+    mode = 'block' if with_cp is True else with_cp
+    if mode not in (False, None, 'block', 'dots', 'attn'):
+        raise ValueError(f"with_cp must be False, True, 'block', 'dots' or "
+                         f"'attn', got {with_cp!r}")
+    if not mode or not block.training:
+        return block(x, generator)
+    if mode == 'attn':
+        return block(x, generator, remat_attn=True)
+    return checkpoint(block, x, generator,
+                      policy='dots' if mode == 'dots' else None)
 
 
 def stage_blocks(depth: int, in_channels: int, out_channels: int,

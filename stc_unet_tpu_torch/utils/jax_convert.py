@@ -23,8 +23,8 @@ neither jax nor the JAX package: the caller hands in the
   ``running_mean``/``running_var`` (plus a zero ``num_batches_tracked``,
   so the result loads with ``strict=True``);
 - the packed ``in_proj_weight``/``in_proj_bias`` of the MHA, the
-  ``relative_position_bias_table`` and ViT's ``cls_token`` and
-  ``embedding`` kept verbatim;
+  ``relative_position_bias_table``, ViT's ``cls_token`` and
+  ``embedding`` and a PReLU's ``weight`` kept verbatim;
 - flax names that stand for a sequence index (``stem_0``, ``stages_1``,
   ``blocks_0``, ``layers_0``, ``layers_up_1``, ``layer_blocks_2``) become
   that index (``stem.0``, ``stages.1``, ``blocks.0``, ``layers.0``,
@@ -39,7 +39,15 @@ weight``): the fork's MaxViT module layout is not in the repo. So do
 those of the ``EncoderDecoderFull`` heads (DC-UNet, UNet++, TransUNet,
 SwinUNet: ``decode_head.mres_block1.conv3x3.0.weight``,
 ``decode_head.swin_unet.layers.0.blocks.1.attn.qkv.weight``), for the same
-reason.
+reason. The ResNet models (PSPNet, DeepLabv3+) take mmseg's keys: a
+``ConvModule``'s ``conv_m`` is its ``conv``
+(``decode_head.bottleneck.conv.weight``), the deep stem's ``stem_conv{j}``
+and ``stem_bn{j}`` are ``stem.{3j}`` and ``stem.{3j+1}``, a PPM scale's
+ConvModule is ``psp_modules.{i}.1`` (behind its pool), the image-pool
+ConvModule ``image_pool.1``, ``sep_bottleneck_{i}`` is
+``sep_bottleneck.{i}``, and under ``avg_down`` a shortcut's conv and BN
+are ``downsample.1`` and ``.2`` (behind its pool: the model must be given
+to tell).
 """
 from __future__ import annotations
 
@@ -70,7 +78,20 @@ _RULES = (
     (re.compile(r'\b(stem|stages|blocks|layers|layers_up|layer_blocks)'
                 r'_(\d+)\b'),
      lambda m: f'{m.group(1)}.{m.group(2)}'),
+    # the ResNet models (mmseg's layout)
+    (re.compile(r'\bconv_m\b'), lambda m: 'conv'),
+    (re.compile(r'\bstem_conv(\d)\b'),
+     lambda m: f'stem.{3 * int(m.group(1))}'),
+    (re.compile(r'\bstem_bn(\d)\b'),
+     lambda m: f'stem.{3 * int(m.group(1)) + 1}'),
+    (re.compile(r'\bpsp_modules\.(\d+)\b'),
+     lambda m: f'psp_modules.{m.group(1)}.1'),
+    (re.compile(r'\bimage_pool_conv\b'), lambda m: 'image_pool.1'),
+    (re.compile(r'\bsep_bottleneck_(\d+)\b'),
+     lambda m: f'sep_bottleneck.{m.group(1)}'),
 )
+# a ResNet shortcut's conv and BN (flax ``downsample/0``, ``/1``)
+_DOWNSAMPLE = re.compile(r'^(.*\.downsample)\.(\d)\.(\w+)$')
 
 
 def translate_path(path: Tuple[str, ...], collection: str = 'params'):
@@ -96,7 +117,7 @@ def translate_path(path: Tuple[str, ...], collection: str = 'params'):
         module, name, tag = path[:-1], 'weight', 'kernel'
     elif leaf == 'scale':
         module, name = path[:-1], 'weight'
-    elif leaf in ('bias', 'in_proj_weight', 'in_proj_bias',
+    elif leaf in ('bias', 'weight', 'in_proj_weight', 'in_proj_bias',
                   'relative_position_bias_table', 'cls_token', 'embedding'):
         module, name = path[:-1], leaf
     else:
@@ -120,6 +141,17 @@ def _bare_4d_tag(key: str, modules: Dict[str, nn.Module]) -> str:
         f'of the same shape; pass the model to tell them apart'
         if module is None else
         f'{key}: a bare 4-D flax kernel for a {type(module).__name__}')
+
+
+def _behind_pool(key: str, modules: Dict[str, nn.Module]) -> str:
+    """``key`` one index further in a ResNet shortcut whose first module
+    is an average pool (``avg_down``: mmseg's ``downsample.1`` is the conv,
+    ``.2`` the BN); the model tells, so a V1d tree needs it."""
+    m = _DOWNSAMPLE.match(key)
+    if m is None or not isinstance(modules.get(f'{m.group(1)}.0'),
+                                   nn.AvgPool2d):
+        return key
+    return f'{m.group(1)}.{int(m.group(2)) + 1}.{m.group(3)}'
 
 
 def _transform(value: np.ndarray, tag: str) -> np.ndarray:
@@ -153,8 +185,8 @@ def jax_to_torch_state(variables: Dict[str, Any],
                        ) -> Dict[str, torch.Tensor]:
     """flax ``{'params', 'batch_stats'}`` (numpy leaves, or torch tensors
     for bfloat16) → state_dict, in float32. ``model``, the port module the
-    result is for, decides how a bare 4-D kernel turns; without it such a
-    kernel raises."""
+    result is for, decides how a bare 4-D kernel turns (without it such a
+    kernel raises) and whether a ResNet shortcut sits behind a pool."""
     modules = dict(model.named_modules()) if model is not None else {}
     sd: Dict[str, torch.Tensor] = {}
     for collection in ('params', 'batch_stats'):
@@ -163,6 +195,7 @@ def jax_to_torch_state(variables: Dict[str, Any],
             v = _float32(value)
             if tag == 'kernel' and v.ndim == 4:
                 tag = _bare_4d_tag(key, modules)
+            key = _behind_pool(key, modules)
             v = _transform(v, tag)
             sd[key] = torch.from_numpy(np.ascontiguousarray(v))
             if key.endswith('.running_mean'):

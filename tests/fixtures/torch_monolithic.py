@@ -176,18 +176,19 @@ def train_batch(size, n=2, seed=3):
     return img, gt
 
 
-def jax_train_run(cfg, variables, img, gt):
-    """Three JAX Adam steps (poly lr) with its dropout off: the log vars
-    of each step, and the variables and optax state before each step and
-    after the last (numpy trees; no optax state before the first)."""
+def jax_train_run(cfg, variables, img, gt, remat=False, steps=STEPS):
+    """``steps`` (three) JAX Adam steps (poly lr) with its dropout off
+    (``remat``: the step's ``jax.checkpoint`` of the whole loss): the log
+    vars of each step, and the variables and optax state before each step
+    and after the last (numpy trees; no optax state before the first)."""
     jm = jax_build(cfg)
     tx = build_optimizer_tx(OPTIMIZER, jax_schedule(LR_CONFIG, ADAM_LR, 10))
     state = TrainState.create(jax.tree_util.tree_map(jnp.asarray, variables),
                               tx)
-    jstep = jax_train_step(jm, tx, donate=False)
+    jstep = jax_train_step(jm, tx, donate=False, remat=remat)
     logs, states = [], [(variables, None)]
     with jax_dropout_off():
-        for _ in range(STEPS):
+        for _ in range(steps):
             state, lv = jstep(state, img, gt, jax.random.PRNGKey(0))
             logs.append({k: float(v) for k, v in lv.items()})
             states.append((_np(state.variables),
@@ -195,13 +196,17 @@ def jax_train_run(cfg, variables, img, gt):
     return logs, states
 
 
-def check_train_steps(cfg, img, gt, jax_run):
-    """Each of the three JAX Adam steps of ``jax_run``
+def check_train_steps(cfg, img, gt, jax_run, remat=False, min_agree=None):
+    """Each of the JAX Adam steps of ``jax_run``
     (:func:`jax_train_run`) against one port step from the same state:
     the JAX variables and optax state before that step
     (``engine.load_opt_state``), the schedule at that step, every dropout
-    rate at 0. Returns the share of coordinates whose moves were held
-    (those of a strong first gradient).
+    rate at 0 (``remat``: ``make_train_step(remat=True)``). Returns the
+    share of coordinates whose moves were held (those of a strong first
+    gradient). With ``min_agree`` the moves must agree on at least that
+    share of those coordinates in each step, not on all: for a model
+    whose JAX f32 gradient is itself far from exact (the ResNet-50
+    models, ``tests/test_torch_psp_aspp.py``).
 
     Each step starts from JAX's state because Adam turns gradients that
     are f32 noise into whole moves of up to lr: the weights of a ReLU
@@ -213,7 +218,7 @@ def check_train_steps(cfg, img, gt, jax_run):
     jlogs, states = jax_run
     schedule = build_lr_schedule(LR_CONFIG, ADAM_LR, 10)
     tracked = None
-    for i in range(STEPS):
+    for i in range(len(jlogs)):
         (before, opt_state), (after, _) = states[i], states[i + 1]
         tm = build_segmentor(cfg)
         sd = jax_to_torch_state(before, tm)
@@ -226,7 +231,7 @@ def check_train_steps(cfg, img, gt, jax_run):
         if opt_state is not None:
             load_opt_state(optimizer, tm, opt_state)
         step = make_train_step(tm, optimizer,
-                               lambda k, i=i: schedule(k + i))
+                               lambda k, i=i: schedule(k + i), remat=remat)
         logs = step(img, gt, torch.Generator().manual_seed(i))
         assert sorted(logs) == sorted(jlogs[i])
         for k, v in jlogs[i].items():
@@ -241,14 +246,24 @@ def check_train_steps(cfg, img, gt, jax_run):
             strong = {k: g.abs() >= 1e-3 * scale for k, g in g1.items()}
             share = sum(int(m.sum()) for m in strong.values()) / sum(
                 m.numel() for m in strong.values())
+        agree = held = 0
+        # two moves of opposite sign differ by 2·lr; where one may turn
+        # (``min_agree``), by that plus the parameter's f32 rounding
+        bound = 2 * ADAM_LR if min_agree is None else 2 * ADAM_LR + 1e-6
         for k, m in strong.items():
             np.testing.assert_allclose(state[k].numpy(), ref[k].numpy(),
-                                       rtol=0, atol=2 * ADAM_LR,
+                                       rtol=0, atol=bound,
                                        err_msg=f'step {i}: {k}')
-            np.testing.assert_allclose(
-                (state[k] - p0[k])[m].numpy(), (ref[k] - p0[k])[m].numpy(),
-                rtol=0, atol=(1e-3 if i == 0 else 0.2) * ADAM_LR,
-                err_msg=f'step {i}: {k}')
+            move, jmove = (state[k] - p0[k])[m], (ref[k] - p0[k])[m]
+            atol = (1e-3 if i == 0 else 0.2) * ADAM_LR
+            if min_agree is None:
+                np.testing.assert_allclose(move.numpy(), jmove.numpy(),
+                                           rtol=0, atol=atol,
+                                           err_msg=f'step {i}: {k}')
+            agree += int(((move - jmove).abs() <= atol).sum())
+            held += int(m.sum())
+        if min_agree is not None:
+            assert agree >= min_agree * held, (i, agree, held)
         for k in ref:
             if k.endswith(('running_mean', 'running_var')):
                 np.testing.assert_allclose(state[k].numpy(), ref[k].numpy(),

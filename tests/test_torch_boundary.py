@@ -8,6 +8,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'stc_unet_tpu', 'mmseg',

@@ -30,6 +30,7 @@ from stc_unet_tpu_torch.utils import Config, jax_to_torch_state
 from stc_unet_tpu_torch.utils.msgpack_decode import ExtType, unpackb
 from tests.fixtures.torch_port import (MAXVIT_CONFIG, jax_variables,
                                        tiny_config)
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 # -- msgpack ------------------------------------------------------------------
 

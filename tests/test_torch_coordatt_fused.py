@@ -19,6 +19,7 @@ import torch
 
 from stc_unet_tpu.ops import coordatt_fused as jfused
 from stc_unet_tpu_torch.ops import coordatt_fused as tfused
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 SHAPES = [(2, 8, 16, 24), (1, 16, 8, 128), (3, 4, 4, 8), (3, 37, 53, 24)]
 # the f32 cases keep their ids; each shape also runs in bfloat16

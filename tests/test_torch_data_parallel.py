@@ -57,6 +57,7 @@ from stc_unet_tpu_torch.utils import png
 from tests.fixtures.torch_port import (REPO, SLIDE, jax_variables,
                                        tiny_config, write_split)
 from tests.torch_dp_ranks import run_ranks, start_ranks, wait_all
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 WORLD, BATCH, STEPS, LR = 2, 4, 3, 1e-3
 OPTIMIZER = dict(type='Adam', lr=LR, betas=(0.9, 0.999))
@@ -207,6 +208,21 @@ def test_ranks_hold_bit_equal_state(dp_train):
         np.testing.assert_array_equal(v, r1['state'][k], err_msg=k)
     for k, v in r0['g1'].items():
         np.testing.assert_array_equal(v, r1['g1'][k], err_msg=k)
+
+
+def test_remat_ranks_are_bit_equal_and_equal_the_plain_ranks(dp_train):
+    """The same 2-rank steps with ``remat=True``: the recompute runs each
+    BN's global all-reduce again inside the backward, in the same order
+    on both ranks, so the ranks stay bit-equal; and each rank's log vars,
+    first gradients, parameters and buffers are its plain run's, bit for
+    bit (the recompute repeats the same ops on the same values)."""
+    r0, r1 = (r['remat'] for r in dp_train['ranks'])
+    plain = dp_train['ranks'][0]
+    assert r0['logs'] == r1['logs'] == plain['logs']
+    for key in ('state', 'g1', 'p1'):
+        for k, v in r0[key].items():
+            np.testing.assert_array_equal(v, r1[key][k], err_msg=k)
+            np.testing.assert_array_equal(v, plain[key][k], err_msg=k)
 
 
 # -- BatchNorm, seeds, loss keys, the pre_eval gather -----------------------

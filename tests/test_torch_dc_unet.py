@@ -16,6 +16,7 @@ from stc_unet_tpu_torch.models.decode_heads import dc_unet_head as tdc
 from stc_unet_tpu_torch.utils import Config, jax_to_torch_state
 from tests.fixtures import torch_monolithic as mono
 from tests.fixtures.torch_port import REPO, random_variables
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 SIZE = 32
 HEAD = dict(type='DC_Unet', out_channels=2, nf=4, norm_cfg=dict(type='BN'))
@@ -158,14 +159,19 @@ def test_dropout_only_with_use_dropout():
     assert torch.equal(a, b)
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize('with_cp', [True, 'hires'])
-def test_with_cp_raises_in_training_and_names_item_r(with_cp):
-    m = build_segmentor(mono.full_cfg(dict(HEAD, with_cp=with_cp)))
-    img = mono.image(1, SIZE)
-    assert m.encode_decode(img).shape == (1, SIZE, SIZE, 2)
-    m.train()
-    with pytest.raises(NotImplementedError, match='Item R'):
-        m.compute_losses(img, np.zeros((1, SIZE, SIZE), np.int64))
+def test_with_cp_steps_match_jax(models, with_cp):
+    """``with_cp`` ``True`` and ``'hires'`` against JAX's ``nn.remat``
+    tiers (``DC_Unet._blk``): three Adam steps as
+    ``test_train_steps_match_jax`` holds them. ``slow``: each compiles a
+    JAX remat step; tier-1 holds each tier to the port's plain step
+    (``tests/test_torch_remat.py``), which is held to JAX above."""
+    jm, _ = models
+    cfg = mono.full_cfg(dict(HEAD, with_cp=with_cp))
+    img, gt = mono.train_batch(SIZE)
+    mono.check_train_steps(
+        cfg, img, gt, mono.jax_train_run(cfg, jm.variables, img, gt))
 
 
 def test_config_builds_at_full_width():

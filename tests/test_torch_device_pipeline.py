@@ -38,6 +38,7 @@ from stc_unet_tpu_torch.datasets import device_pipeline as tdp
 from stc_unet_tpu_torch.utils import png
 from stc_unet_tpu_torch.utils.image import imnormalize
 from tests.fixtures.torch_port import REPO
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 PHOTO_TOL = 1e-4           # absolute, on the 0-255 scale
 

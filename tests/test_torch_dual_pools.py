@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from stc_unet_tpu_torch.ops import dual_pools as tdp
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 
 def _plan(vec, width, warps, bands, tiles, blocks, combine, n=None, w=None):

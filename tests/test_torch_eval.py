@@ -36,6 +36,7 @@ from stc_unet_tpu_torch.datasets import build_dataloader, build_dataset
 from stc_unet_tpu_torch.utils import Config, jax_to_torch_state
 from tests.fixtures.torch_port import (REPO, jax_variables, split_classes,
                                        tiny_config, write_split)
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 BAND = 1e-3
 

@@ -48,6 +48,7 @@ from stc_unet_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dq, flash_attention_forward,
     flash_attention_reference)
 from stc_unet_tpu_torch.utils import jax_to_torch_state
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 TOOLS = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), 'tools')
 
@@ -318,6 +319,22 @@ def _mha_params(c, heads, seed=0):
                 'bias': (rng.randn(c) * 0.1).astype(np.float32)}}}
 
 
+def _jit_vjp(fn, args, do):
+    """``fn(*args)`` and its ``jax.vjp`` against ``do``, in one jitted
+    program. Run eagerly, the interpret mode's kernel executes its
+    callbacks (which dispatch JAX ops of their own) while the main thread
+    already dispatches the next ops of the vjp, and the two can deadlock
+    (seen in two of four runs of the port's tests under pytest-xdist: a
+    callback thread in ``update_clocks_for_device_barrier``, the main
+    thread in ``apply_primitive``, for good); one program leaves the main
+    thread nothing to dispatch until it ends. The function is the
+    same."""
+    def run(args, do):
+        out, vjp = jax.vjp(fn, *args)
+        return out, vjp(do)
+    return jax.jit(run)(tuple(args), do)
+
+
 @pytest.mark.parametrize('dtype,train', [('float32', False),
                                          ('bfloat16', False),
                                          ('bfloat16', True)])
@@ -334,9 +351,9 @@ def test_mha_flash_matches_jax(dtype, train):
     jm = JMHA(embed_dim=c, num_heads=heads, use_flash=True)
     args = [jnp.asarray(a, jdt) for a in (q, k, v)]
     with pltpu.force_tpu_interpret_mode():
-        jout, vjp = jax.vjp(lambda *a: jm.apply({'params': params}, *a,
-                                                train=train), *args)
-        jgrads = vjp(jnp.asarray(do, jout.dtype))
+        jout, jgrads = _jit_vjp(
+            lambda *a: jm.apply({'params': params}, *a, train=train),
+            args, jnp.asarray(do, jdt if train else jnp.float32))
     tm = MultiheadAttention(c, heads, use_flash=True).train(train)
     tm.load_state_dict(_state({'params': params}), strict=True)
     tdt = getattr(torch, dtype)
@@ -388,10 +405,9 @@ def test_transformer_block_flash_matches_jax():
                                                   jnp.asarray(x)))
     jb = JBlock(c, heads, layers, use_flash=True)
     with pltpu.force_tpu_interpret_mode():
-        jy, vjp = jax.vjp(lambda p, a: jb.apply({'params': p}, a,
-                                                train=True),
-                          variables['params'], jnp.asarray(x))
-        jdp, jdx = vjp(jnp.asarray(do))
+        jy, (jdp, jdx) = _jit_vjp(
+            lambda p, a: jb.apply({'params': p}, a, train=True),
+            (variables['params'], jnp.asarray(x)), jnp.asarray(do))
     tb = TransformerBlock(c, heads, layers, use_flash=True).train()
     tb.load_state_dict(_state(variables), strict=True)
     xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_(True)

@@ -34,6 +34,7 @@ from stc_unet_tpu_torch.core import build_optimizer
 from stc_unet_tpu_torch.engine import make_train_step
 from stc_unet_tpu_torch.models import build_segmentor
 from stc_unet_tpu_torch.utils import jax_to_torch_state
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 SLIDE = dict(mode='slide', crop_size=(256, 256), stride=(170, 170))
 

@@ -22,6 +22,7 @@ from stc_unet_tpu.models.losses.dice_loss import \
 from stc_unet_tpu_torch.models import losses as tl
 from stc_unet_tpu_torch.models.decode_heads.decode_head import \
     BaseDecodeHead as THead
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

@@ -41,11 +41,12 @@ from stc_unet_tpu_torch.models import build_segmentor
 from stc_unet_tpu_torch.models.decode_heads import BaseDecodeHead
 from stc_unet_tpu_torch.models.decode_heads.maxvit_decoder import \
     DeconvModule
-from stc_unet_tpu_torch.models.utils.maxvit_core import (MaxViTBlock,
-                                                         apply_maxvit_block)
+from stc_unet_tpu_torch.models.utils.maxvit_core import MaxViTBlock
 from stc_unet_tpu_torch.models.utils.swin_core import DropPath, drop_path
 from stc_unet_tpu_torch.ops import window_attention as twa
 from stc_unet_tpu_torch.utils import jax_to_torch_state
+from tests.fixtures import torch_monolithic as mono
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SIZE = 64
@@ -367,11 +368,10 @@ def test_transform_inputs_match_jax():
                        input_transform='multiple_select')
 
 
-def test_full_width_config_builds_and_with_cp_raises():
+def test_full_width_config_builds():
     """``my_config/MaxViT-UNet.py`` builds at full width (its depths, 32
     heads, 8×8 windows); the seeded init draws the relative-position tables
-    from a normal of std 0.02 cut at 2 std; a remat mode raises in
-    training, not in eval."""
+    from a normal of std 0.02 cut at 2 std."""
     from stc_unet_tpu_torch.utils import Config
     cfg = Config.fromfile(osp.join(REPO, 'my_config', 'MaxViT-UNet.py'))
     m = build_segmentor(cfg.model, test_cfg=cfg.get('test_cfg'))
@@ -386,11 +386,25 @@ def test_full_width_config_builds_and_with_cp_raises():
     table = build_segmentor(_cfg()).init_weights().backbone.stages[0].blocks[
         0].block_transformer.attention.relative_position_bias_table
     assert 0 < table.abs().max() <= 0.04 and table.std() > 0.01
-    block = MaxViTBlock(4, 4, num_heads=2, grid_window_size=(2, 2))
-    x = torch.randn(1, 4, 4, 4)
-    assert apply_maxvit_block(block.eval(), x, 'attn').shape == x.shape
-    with pytest.raises(NotImplementedError, match='BN running stats'):
-        apply_maxvit_block(block.train(), x, True)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize('with_cp', [True, 'block', 'dots', 'attn'])
+def test_with_cp_steps_match_jax(models, with_cp):
+    """Each ``with_cp`` tier in the encoder and the decoder against JAX's
+    (``apply_maxvit_block``: ``nn.remat``, with the
+    ``dots_with_no_batch_dims_saveable`` policy for ``'dots'``, and the
+    two attention sub-blocks for ``'attn'``): three Adam steps, each from
+    JAX's state, every dropout rate at 0
+    (``tests/fixtures/torch_monolithic.py``). ``slow``: each compiles a
+    JAX remat step; tier-1 holds each tier to the port's plain step
+    (``tests/test_torch_remat.py``), which is held to JAX above."""
+    jm, _ = models
+    cfg = _cfg(rate=0.0)
+    cfg['backbone']['with_cp'] = cfg['decode_head']['with_cp'] = with_cp
+    img, gt = mono.train_batch(SIZE)
+    mono.check_train_steps(
+        cfg, img, gt, mono.jax_train_run(cfg, jm.variables, img, gt))
 
 
 @pytest.mark.slow

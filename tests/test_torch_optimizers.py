@@ -22,6 +22,7 @@ from stc_unet_tpu.core.optimizers.lr_schedules import \
     build_lr_schedule as jax_schedule
 from stc_unet_tpu_torch.core import build_lr_schedule, build_optimizer
 from stc_unet_tpu_torch.core.optimizers import RMSprop
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 MAX_ITERS = 20
 

@@ -37,6 +37,7 @@ from stc_unet_tpu_torch.datasets.pipelines import Compose
 from stc_unet_tpu_torch.utils import Config, image, jax_to_torch_state
 from tests.fixtures.torch_port import (SLIDE, jax_variables, split_classes,
                                        tiny_config, write_split)
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 
 # -- image ops ----------------------------------------------------------------

@@ -24,6 +24,7 @@ from PIL import Image
 
 from stc_unet_tpu_torch.ops import _build
 from stc_unet_tpu_torch.utils import image, png
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 H, W = 23, 37
 

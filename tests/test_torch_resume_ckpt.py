@@ -51,6 +51,7 @@ from tests.fixtures.torch_port import jax_variables, tiny_config, write_split
 from test_torch_train_engine import (BATCH, ITERS, LR, SeededJaxDataset,
                                      train_config)
 from tests.test_torch_train_step import _assert_moves_close
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 OPTIMIZERS = {
     'sgd_momentum': dict(type='SGD', lr=1e-2, momentum=0.9,

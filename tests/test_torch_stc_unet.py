@@ -20,6 +20,8 @@ from stc_unet_tpu.models import build_segmentor as jax_build
 from stc_unet_tpu.models.segmentors.encoder_decoder import EncoderDecoderNet
 from stc_unet_tpu_torch.models import build_segmentor
 from stc_unet_tpu_torch.utils import Config, jax_to_torch_state
+from tests.fixtures import torch_monolithic as mono
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SLIDE = dict(mode='slide', crop_size=(16, 16), stride=(8, 8))
@@ -143,11 +145,12 @@ def test_bf16_image_follows_the_jax_dtype_flow(models):
 
 def test_training_is_not_ported(models):
     """What of training is still not ported raises: a pixel sampler
-    (OHEM), the layer-decay optimizers and remat; a mesh must be a
-    device mesh or a process group. The train step itself is held to
-    JAX's in ``test_torch_train_step.py`` (on two ranks in
-    ``test_torch_data_parallel.py``); here ``forward(return_loss=True)``
-    needs the labels and gives the loss dict."""
+    (OHEM) and the layer-decay optimizers; a mesh must be a device mesh
+    or a process group (remat is ported: ``tests/test_torch_remat.py``).
+    The train step itself is held to JAX's in ``test_torch_train_step.py``
+    (on two ranks in ``test_torch_data_parallel.py``); here
+    ``forward(return_loss=True)`` needs the labels and gives the loss
+    dict."""
     from stc_unet_tpu_torch.core import build_optimizer
     from stc_unet_tpu_torch.engine import make_train_step
     _, tm = models
@@ -170,8 +173,6 @@ def test_training_is_not_ported(models):
         build_optimizer(tm, dict(type='AdamW', lr=1e-3,
                                  constructor='LayerDecayOptimizerConstructor'))
     opt = build_optimizer(tm, dict(type='Adam', lr=1e-3))
-    with pytest.raises(NotImplementedError):
-        make_train_step(tm, opt, remat=True)
     with pytest.raises(TypeError, match='DeviceMesh or a ProcessGroup'):
         make_train_step(tm, opt, mesh=object())
     assert not tm.training
@@ -232,3 +233,31 @@ def test_full_width_slide_parity_512():
     print(f'slide 512: max abs error {np.abs(out - ref).max()}, '
           f'|max| {np.abs(ref).max()}')
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def full_width_train_step(size):
+    """One Adam step (poly lr) of ``my_config/STC-UNet.py`` at full width
+    with the head's dropout off, on a B=2 f32 batch of ``size``² images,
+    in the port against JAX's from the same weights
+    (``tests/fixtures/torch_monolithic.py``): the log vars to rtol 1e-5,
+    the BN running stats to rtol 1e-4 / atol 1e-5, every parameter
+    within 2·lr, the moves of the coordinates whose gradient is at least
+    1e-3 of the largest to lr/1000."""
+    jm, _ = _full_width_models()
+    cfg = Config.fromfile(osp.join(REPO, 'my_config', 'STC-UNet.py'))
+    cfg.model.pretrained = None
+    cfg.model.decode_head.dropout_ratio = 0.0
+    cfg.model.test_cfg = cfg.get('test_cfg')
+    mcfg = cfg.to_dict()['model']
+    img, gt = mono.train_batch(size)
+    return mono.check_train_steps(
+        mcfg, img, gt, mono.jax_train_run(mcfg, jm.variables, img, gt,
+                                          steps=1))
+
+
+@pytest.mark.slow
+def test_full_width_train_step_512():
+    """``full_width_train_step`` at 512², B=2 (ROADMAP §3 item 3: the card
+    is held to the CPU at 64², and this holds the CPU to JAX at full
+    size)."""
+    full_width_train_step(512)

@@ -22,6 +22,7 @@ from stc_unet_tpu_torch.models.utils import swin_core as tsc
 from stc_unet_tpu_torch.utils import Config, jax_to_torch_state
 from tests.fixtures import torch_monolithic as mono
 from tests.fixtures.torch_port import REPO, random_variables
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 SIZE = 64
 HEAD = dict(type='SwinUNet', img_size=64, patch_size=8, window_size=4,

@@ -55,6 +55,7 @@ from stc_unet_tpu_torch.utils import Config
 from tests.fixtures.torch_port import (REPO, STC_CONFIG, jax_variables,
                                        split_classes, tiny_config,
                                        write_split)
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 SCALE = 'data.test.pipeline.1.img_scale=(32,32)'
 PALETTE = [[0, 0, 0], [255, 64, 0]]

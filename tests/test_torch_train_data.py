@@ -31,6 +31,7 @@ from stc_unet_tpu_torch.datasets import (PIPELINES, DistributedSampler,
                                          sample_seed)
 from stc_unet_tpu_torch.utils import Config, image
 from tests.fixtures.torch_port import STC_CONFIG, write_split
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 
 # -- image operations against cv2 ---------------------------------------------

@@ -62,6 +62,7 @@ from stc_unet_tpu_torch.utils import Config, jax_to_torch_state
 from tests.fixtures.torch_port import REPO, jax_variables, tiny_config, \
     write_split
 from tests.test_torch_train_step import _assert_moves_close
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 EPOCHS, ITERS, BATCH, LR = 2, 2, 2, 1e-5
 BAND = 1e-2
@@ -445,11 +446,11 @@ def test_what_is_not_ported_raises(roots, tmp_path):
     ds = build_dataset(cfg.data.train)
     # data parallelism is ported (item 14), one process a card: without
     # the ranks' process group, or with two cards in one process, it
-    # raises; remat is not ported
+    # raises (remat is ported: cfg.remat trains through the CLI in
+    # test_torch_psp_aspp.py)
     cases = [(dict(distributed=True), {}, RuntimeError, 'init_dist'),
              ({}, dict(gpu_ids=[0, 1]), NotImplementedError,
-              'torch.distributed.run'),
-             ({}, dict(remat=True), NotImplementedError, 'Item R')]
+              'torch.distributed.run')]
     for kw, extra, error, match in cases:
         with pytest.raises(error, match=match):
             train_segmentor(model, ds, Config(dict(cfg.to_dict(), **extra)),

@@ -48,6 +48,7 @@ from stc_unet_tpu_torch.models.backbones.unet_backbone import \
 from stc_unet_tpu_torch.models.bricks import BatchNorm, Dropout2d
 from stc_unet_tpu_torch.models.segmentors.base import BaseSegmentor
 from stc_unet_tpu_torch.utils import jax_to_torch_state
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 STEPS = 3
 ADAM_LR = 1e-3
@@ -400,5 +401,3 @@ def test_train_step_rejects_what_is_not_ported():
     opt = build_optimizer(tm, dict(type='Adam', lr=1e-3))
     with pytest.raises(TypeError, match='DeviceMesh or a ProcessGroup'):
         make_train_step(tm, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match='BN running stats'):
-        make_train_step(tm, opt, remat=True)

@@ -21,6 +21,7 @@ from stc_unet_tpu_torch.models.decode_heads import vit as tvit
 from stc_unet_tpu_torch.utils import Config, jax_to_torch_state
 from tests.fixtures import torch_monolithic as mono
 from tests.fixtures.torch_port import REPO, random_variables
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 SIZE = 32
 HEAD = dict(type='TransUNet', img_dim=32, in_channels=3, out_channels=16,

@@ -13,6 +13,7 @@ from stc_unet_tpu_torch.models import build_segmentor
 from stc_unet_tpu_torch.utils import Config
 from tests.fixtures import torch_monolithic as mono
 from tests.fixtures.torch_port import REPO
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 SIZE = 32
 SLIDE = dict(mode='slide', crop_size=(16, 16), stride=(8, 8))

@@ -19,6 +19,7 @@ from stc_unet_tpu_torch.models.decode_heads import unetpp_head as tpp
 from stc_unet_tpu_torch.utils import Config, jax_to_torch_state
 from tests.fixtures import torch_monolithic as mono
 from tests.fixtures.torch_port import REPO, random_variables
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 SIZE = 32
 HEAD = dict(type='UnetPlusPlus', num_classes=2, norm_cfg=dict(type='BN'))

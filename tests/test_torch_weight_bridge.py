@@ -28,6 +28,7 @@ from stc_unet_tpu_torch.ops import resize
 from stc_unet_tpu_torch.utils import Config, jax_to_torch_state
 from tests.fixtures.torch_stc_unet import (CH, DEC, _TorchSTCUNet,
                                            prefixed_state_dict)
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 

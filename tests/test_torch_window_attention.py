@@ -39,6 +39,7 @@ from stc_unet_tpu.ops.window_attention import window_attention as jax_wa
 from stc_unet_tpu.ops.window_attention import \
     window_attention_reference as jax_wa_reference
 from stc_unet_tpu_torch.ops import window_attention as twa
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401
 
 CASES = [(4, 2, 16), (2, 8, 8), (8, 4, 32), (32, 2, 64)]   # heads, d, N
 

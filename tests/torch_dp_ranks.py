@@ -137,25 +137,30 @@ def train_steps(rank, world, cfg_path, state, img, gt, optimizer, lr_config,
                 max_iters, steps):
     """``steps`` data-parallel steps on rank ``rank``'s rows of the global
     batch: each step's log vars, the parameters and the (averaged)
-    gradients after the first, and the state_dict after the last."""
+    gradients after the first, and the state_dict after the last; then
+    the same from the same weights with ``remat=True`` (its BN
+    all-reduces run again in the backward's recompute), under
+    ``'remat'``."""
     from stc_unet_tpu_torch.core import build_lr_schedule, build_optimizer
     from stc_unet_tpu_torch.engine import make_train_step
     from stc_unet_tpu_torch.utils import default_data_mesh
-    _, model = _model(cfg_path, state)
-    step = make_train_step(
-        model, build_optimizer(model, optimizer),
-        build_lr_schedule(lr_config, optimizer['lr'], max_iters),
-        mesh=default_data_mesh())
-    out = dict(logs=[])
-    for i in range(steps):
-        log_vars = step(_rows(img, rank, world), _rows(gt, rank, world))
-        out['logs'].append({k: v.item() for k, v in log_vars.items()})
-        if i == 0:
-            out['g1'] = _numpy((k, p.grad)
-                               for k, p in model.named_parameters())
-            out['p1'] = _numpy(model.named_parameters())
-    out['state'] = _numpy(model.state_dict().items())
-    return out
+    runs = {}
+    for remat in (False, True):
+        _, model = _model(cfg_path, state)
+        step = make_train_step(
+            model, build_optimizer(model, optimizer),
+            build_lr_schedule(lr_config, optimizer['lr'], max_iters),
+            mesh=default_data_mesh(), remat=remat)
+        out = runs[remat] = dict(logs=[])
+        for i in range(steps):
+            log_vars = step(_rows(img, rank, world), _rows(gt, rank, world))
+            out['logs'].append({k: v.item() for k, v in log_vars.items()})
+            if i == 0:
+                out['g1'] = _numpy((k, p.grad)
+                                   for k, p in model.named_parameters())
+                out['p1'] = _numpy(model.named_parameters())
+        out['state'] = _numpy(model.state_dict().items())
+    return dict(runs[False], remat=runs[True])
 
 
 def batchnorm_and_helpers(rank, world, x, do):
