@@ -163,7 +163,17 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
 16. drives PSPNet and DeepLabv3+ (``my_config/PSPNet.py``,
     ``my_config/DeepLabv3+.py``: ResNet-50 at output stride 8) as in 14,
     none of which runs a kernel of the port (``resnet_slice``,
-    ``resnet_train_check``, ``resnet_timing``, ``resnet_train``).
+    ``resnet_train_check``, ``resnet_timing``, ``resnet_train``);
+17. drives the reference fork's live heads as in 14 (``FORK``:
+    ``my_config/DC-UNet.py`` with its decode_head replaced by ResUNet,
+    LinkNet, MultiResUnet, CARUnet with ``ca=True`` and CARUnet with
+    ``ca``, ``denseaspp`` and ``densecadrb``), each forward and step
+    checked to launch K1 7 times (CARUnet-ca), 14 times (the dense one)
+    or not at all, no other kernel (``fork_slice``,
+    ``fork_train_check``, ``fork_timing``, ``fork_train``); then holds
+    K1 to its plain version at CARUnet's seven B=8 shapes in f32 and
+    bf16 with bit-identical reruns and times it there beside two
+    ``torch.sum`` and its bound (``fork_kernel_timing``).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --grad-readings 3   # GRAD_FLOORS' readings
@@ -363,6 +373,67 @@ GRAD_FLOORS = {'my_config/UNet++.py': 0.0175}
 RESNET = {'my_config/PSPNet.py': ('psp', 'decode_head.psp_modules'),
           'my_config/DeepLabv3+.py': ('aspp', 'decode_head.aspp_modules')}
 REMAT_MODES = {'my_config/DC-UNet.py': DC_REMAT}
+# The reference fork's live heads (ROADMAP item 19) at the JAX defaults,
+# 2 classes (KiTS): each built from FORK_BASE with its decode_head
+# replaced, the base config's CE + Dice kept (``fork_cfg``). name ->
+# (train check focus, decode_head, launches a forward and a step):
+# CARUnet's CoordAtt gates run K1 once a block, 7 blocks (14 dense).
+FORK_BASE = 'my_config/DC-UNet.py'
+FORK = {
+    'ResUNet': (('deconv', 'decode_head.up'),
+                dict(type='ResUNet', filters=(64, 128, 256, 512),
+                     num_classes=2), {}),
+    'LinkNet': (('decoder', 'decode_head.decoder'),
+                dict(type='LinkNet', n_classes=2, num_classes=2), {}),
+    'MultiResUnet': (('respath', '.respath'),
+                     dict(type='MultiResUnet', filters=32, nclasses=2,
+                          num_classes=2), {}),
+    'CARUnet-ca': (('coordatt', '.meca'),
+                   dict(type='CARUnet', ca=True, num_classes=2),
+                   dict(strip_pools=7)),
+    'CARUnet-ca-dense': (('coordatt', '.meca'),
+                         dict(type='CARUnet', ca=True, denseaspp=True,
+                              densecadrb=True, num_classes=2),
+                         dict(strip_pools=14)),
+}
+# K1 at CARUnet's seven CoordAtt gates, (N, H, W, C) at B=8, 512²: the
+# encoder's 16/32/64/64 blocks, then the decoder's 32/16/16
+CARUNET_K1 = [(8, 512, 512, 16), (8, 256, 256, 32), (8, 128, 128, 64),
+              (8, 64, 64, 64), (8, 128, 128, 32), (8, 256, 256, 16),
+              (8, 512, 512, 16)]
+# MultiResUnet's Respath lengths, from the top level down
+MULTIRES_RESPATH = (4, 3, 2, 1)
+
+
+def fork_cfg(Config, name):
+    """FORK's config ``name``: ``FORK_BASE`` with its decode_head
+    replaced by the fork head, the base's loss kept."""
+    cfg = Config.fromfile(os.path.join(REPO, FORK_BASE))
+    cfg.model.decode_head = dict(
+        FORK[name][1], loss_decode=cfg.model.decode_head.loss_decode)
+    return cfg
+
+
+def multires_bn_calls(key):
+    """How often MultiResUnet's BN of the ``num_batches_tracked`` key
+    ``key`` runs in a training forward, each run counted by torch: a
+    Multiresblock's ``batch_norm1`` twice; Respath i's ``batch_norm1``
+    once and, for a length L over 1, L more times, and its two common
+    blocks' BNs L times; every other BN once."""
+    m = re.search(r'\brespath(\d)\.(\w+)', key)
+    if m is not None:
+        length = MULTIRES_RESPATH[int(m.group(1)) - 1]
+        if m.group(2) == 'batch_norm1':
+            return 1 + length if length > 1 else 1
+        if m.group(2).endswith('_common'):
+            return length
+    elif re.search(r'\bmultiresblock\d\.batch_norm1\.', key):
+        return 2
+    return 1
+
+
+# The BN call counts of the configs whose BNs do not all run once a forward
+BN_CALLS = {'MultiResUnet': multires_bn_calls}
 
 
 # the kernels a forward launches: a rematerialised step runs them again
@@ -438,8 +509,9 @@ def timed(torch, kernel, library, plain=None, plain_iters=10):
     return r
 
 
-def check_kernels(torch, cf, x, a_h, a_w):
-    """K1 and K2 on x against their plain versions; max abs errors."""
+def check_strip_pools(torch, cf, x):
+    """K1 on x against its plain version (rtol 1e-5, atol 1e-4) and its
+    own rerun (bit-identical); the max abs error."""
     sh, sw = cf.strip_pools(x)
     sh2, sw2 = cf.strip_pools(x)
     eh, ew = cf.strip_pools_reference(x)
@@ -447,8 +519,12 @@ def check_kernels(torch, cf, x, a_h, a_w):
     torch.testing.assert_close(sw, ew, rtol=1e-5, atol=1e-4)
     if not (torch.equal(sh, sh2) and torch.equal(sw, sw2)):
         raise AssertionError(f'strip_pools not deterministic {x.shape}')
-    e1 = max((sh - eh).abs().max().item(), (sw - ew).abs().max().item())
-    del sh, sw, sh2, sw2, eh, ew
+    return max((sh - eh).abs().max().item(), (sw - ew).abs().max().item())
+
+
+def check_kernels(torch, cf, x, a_h, a_w):
+    """K1 and K2 on x against their plain versions; max abs errors."""
+    e1 = check_strip_pools(torch, cf, x)
     out = cf.gate_add(x, a_h, a_w)
     ref = cf.gate_add_reference(x, a_h, a_w)
     if x.dtype == torch.float32:
@@ -3167,6 +3243,56 @@ def phase_kernel_timing(torch, cf, err):
     return per
 
 
+def phase_fork_kernel_timing(torch, cf, err):
+    """K1 at CARUnet's seven CoordAtt shapes of a B=8 512² batch
+    (``CARUNET_K1``), in f32 and in bf16 (the train step's): each held
+    against its plain version and its own rerun (``check_strip_pools``,
+    its max abs error folded into err), then timed beside its plain
+    version and two ``torch.sum`` (``ms``, ``device_ms``), with its bound
+    (bytes over 3.35 TB/s), achieved GB/s and launch plan (16-byte
+    vectors where C is a multiple of 32 floats or 64 bfloat16, else one
+    element a lane). The totals are one CARUnet-ca forward's seven
+    launches; ``loses_to_library`` lists the shapes where the two
+    ``torch.sum`` take less device time."""
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        rows[name] = []
+        for i, shape in enumerate(CARUNET_K1):
+            g = torch.Generator(device='cuda').manual_seed(200 + i)
+            x = torch.randn(shape, generator=g, device='cuda').to(dtype)
+            e = check_strip_pools(torch, cf, x)
+            err['strip_pools'] = max(err['strip_pools'], e)
+            r = timed(torch, lambda: cf.strip_pools(x),
+                      lambda: (torch.sum(x, 2, dtype=torch.float32),
+                               torch.sum(x, 1, dtype=torch.float32)),
+                      lambda: cf.strip_pools_reference(x))
+            n, h, w, c = shape
+            plan = cf.strip_plan(shape, x.element_size(),
+                                 x.data_ptr() % 16 == 0)
+            r.update(shape=list(shape), max_abs_err=e,
+                     vector_loads=bool(plan['vec']),
+                     bytes=x.numel() * x.element_size() +
+                     (n * h * c + n * w * c) * 4, flops=2 * x.numel())
+            rows[name].append(achieved(bound(r)))
+            del x
+    torch.cuda.empty_cache()
+    emit('fork_kernel_timing', kernel='strip_pools', batch=8,
+         shapes='CARUnet-ca: encoder 16/32/64/64, decoder 32/16/16',
+         library='torch.sum(x, 2, dtype=f32) + torch.sum(x, 1, dtype=f32), '
+                 'two calls',
+         timer='ms: CUDA event pair, host time included; device_ms: the '
+               'host hidden behind a sleep kernel',
+         tolerance='rtol 1e-5 atol 1e-4, bit-identical reruns',
+         rows=rows,
+         totals={name: totals(dict(strip_pools=rs))
+                 for name, rs in rows.items()},
+         loses_to_library={name: [r['shape'] for r in rs
+                                  if r['device_ms'] > r['library_device_ms']]
+                           for name, rs in rows.items()})
+    return rows
+
+
 def train_step_for(torch, model, compute_dtype=None, mesh=None,
                    remat=False):
     """The port's train step on model and its optimizer: bench.py's Adam
@@ -3306,7 +3432,7 @@ def step_faults(a, b, yard_whole, yard, pixel, stats_yard=None):
 def phase_train_check(torch, cfg, init_segmentor, size, phase='train_check',
                       focus=('coordatt', '.ca.'), prepare=None,
                       step2_from_cpu=False, grad_floor=GRAD_FLOOR,
-                      remat=None, stats_yard=False):
+                      remat=None, stats_yard=False, bn_calls=None):
     """Two train steps at full width on the card and on the port on the
     CPU, from the same weights: ``size``² images, B=2, f32, TF32 off (set
     by main), with every dropout rate of ``cfg`` at 0 (set by the caller;
@@ -3318,7 +3444,9 @@ def phase_train_check(torch, cfg, init_segmentor, size, phase='train_check',
     correct runs drift apart after a step (in DC-UNet enough to move the
     second loss by 1.6e-5 of itself).
     Compares each step's losses, the first step's gradients and BN running
-    stats, and the step count of every BN (``step_faults``). ``focus`` (a
+    stats, and the step count of every BN (``step_faults``): 2, or twice
+    ``bn_calls(key)`` for a BN that runs more than once a forward (torch
+    counts each run; MultiResUnet's ``multires_bn_calls``). ``focus`` (a
     name and a key fragment) picks the tensors of the kernels' layers for
     their own report.
 
@@ -3399,8 +3527,11 @@ def phase_train_check(torch, cfg, init_segmentor, size, phase='train_check',
     focused = {k: e for k, e in rel.items() if part in k}
     for m in (card, cpu):
         for k, v in m.state_dict().items():
-            if k.endswith('num_batches_tracked') and int(v) != 2:
-                faults.append(f'{k}: {int(v)}, want 2')
+            if not k.endswith('num_batches_tracked'):
+                continue
+            want = 2 * (1 if bn_calls is None else bn_calls(k))
+            if int(v) != want:
+                faults.append(f'{k}: {int(v)}, want {want}')
     emit(phase, ok=not faults, faults=faults[:8], size=size, batch=2,
          dtype='float32', tf32=False, step2_from_cpu=step2_from_cpu,
          dropout_ratio=0.0, losses={k: r['logs'] for k, r in runs.items()},
@@ -3669,10 +3800,15 @@ def monolithic_ready(model):
     return model
 
 
-def monolithic_check_cfg(Config, config):
-    """``config`` as ``monolithic_train_check`` builds it: the head's
-    dropout at 0, SwinUNet at ``img_size`` 64."""
-    cfg = Config.fromfile(os.path.join(REPO, config))
+def config_file(Config, config):
+    """The config file ``config`` of the repo."""
+    return Config.fromfile(os.path.join(REPO, config))
+
+
+def monolithic_check_cfg(Config, config, load=config_file):
+    """``config`` (loaded by ``load``) as ``monolithic_train_check`` builds
+    it: the head's dropout at 0, SwinUNet at ``img_size`` 64."""
+    cfg = load(Config, config)
     cfg.model.decode_head.dropout_ratio = 0.0
     if 'SwinUnet' in config:
         cfg.model.decode_head.img_size = 64
@@ -3712,13 +3848,19 @@ def grad_readings(torch, init_segmentor, Config, seeds):
 
 
 def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi,
-                     configs=MONOLITHIC, prefix='monolithic'):
-    """U-Net and the paper's monolithic baselines (``MONOLITHIC``), or
-    the ResNet-50 baselines (``RESNET``, with ``prefix`` ``'resnet'``),
-    each at full width from seed 0 and none running a kernel of the port:
+                     configs=MONOLITHIC, prefix='monolithic',
+                     load=config_file, forward=None, bn_calls=None):
+    """U-Net and the paper's monolithic baselines (``MONOLITHIC``), the
+    ResNet-50 baselines (``RESNET``, with ``prefix`` ``'resnet'``), or the
+    fork's live heads (``FORK``, ``prefix`` ``'fork'``, ``load``
+    ``fork_cfg``), each at full width from seed 0. ``forward`` gives a
+    config's kernel launches a forward, which a train step repeats (none
+    if not given: only CARUnet's CoordAtt gates launch K1); each request,
+    timed call and step is checked against them. ``bn_calls`` gives a
+    config's BN call counts (``phase_train_check``):
 
     - ``monolithic_slice``: whole requests of B=2 at 512² in bf16 through
-      the entry point, no kernel launched, the card's f32 logits (TF32
+      the entry point, the ``forward`` launches, the card's f32 logits (TF32
       off) held to the port on the CPU by ``compare_logits`` at 256²
       (SwinUNet at 512², its ``img_size``). A seeded TransUNet's class
       margin spreads over 0.6 % of its largest logit, so 1e-3 of that
@@ -3740,39 +3882,40 @@ def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi,
       train check in each tier (``remat_train_check``) and the timed step
       plain and in each tier (``remat_train``).
 
-    Returns the launches (all 0)."""
+    Returns the launches."""
     launches = dict.fromkeys(KERNELS, 0)
     label, cudnn, matmul = tf32
     for config, focus in configs.items():
-        path = os.path.join(REPO, config)
         swin = 'SwinUnet' in config
-        model = init_segmentor(Config.fromfile(path))
+        expected = (forward or {}).get(config, {})
+        model = init_segmentor(load(Config, config))
 
         def cpu_model():
-            m = init_segmentor(Config.fromfile(path), device='cpu')
+            m = init_segmentor(load(Config, config), device='cpu')
             m.load_state_dict({k: v.cpu() for k, v in
                                model.state_dict().items()})
             return m
 
         served = phase_slice(torch, kern, model, cpu_model, config,
-                             ('whole',), {}, phase=f'{prefix}_slice',
+                             ('whole',), expected, phase=f'{prefix}_slice',
                              check_size=512 if swin else 256,
                              margin_floor=1e-5)
         modes = REMAT_MODES.get(config, ())
 
         def with_cp_cfg(mode, check=True):
-            cfg = monolithic_check_cfg(Config, config) if check else \
-                Config.fromfile(path)
+            cfg = monolithic_check_cfg(Config, config, load) if check \
+                else load(Config, config)
             cfg.model.decode_head.with_cp = mode
             return cfg
 
-        phase_train_check(torch, monolithic_check_cfg(Config, config),
+        phase_train_check(torch, monolithic_check_cfg(Config, config, load),
                           init_segmentor, 64, phase=f'{prefix}_train_check',
                           focus=focus, prepare=monolithic_ready,
                           step2_from_cpu=True,
                           grad_floor=GRAD_FLOORS.get(config, GRAD_FLOOR),
                           remat=(kern, config, with_cp_cfg, modes)
-                          if modes else None, stats_yard=config in RESNET)
+                          if modes else None, stats_yard=config in RESNET,
+                          bn_calls=(bn_calls or {}).get(config))
         set_tf32(torch, cudnn, matmul)
         g = torch.Generator(device='cuda').manual_seed(3)
         img = torch.rand((8, 512, 512, 3), generator=g,
@@ -3791,9 +3934,9 @@ def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi,
         trained = None
         for batch in (TRAIN_BATCH, 4, 2, 1):
             try:
-                trained = phase_train(torch, kern, model, [tf32], config, {},
-                                      'the config\'s', f'{prefix}_train',
-                                      batch=batch)
+                trained = phase_train(torch, kern, model, [tf32], config,
+                                      expected, 'the config\'s',
+                                      f'{prefix}_train', batch=batch)
                 break
             except torch.cuda.OutOfMemoryError as e:
                 oom.append(dict(batch=batch,
@@ -3802,8 +3945,10 @@ def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi,
                 torch.cuda.empty_cache()
         if trained is None:
             raise AssertionError(f'{config}: no train batch fits: {oom}')
-        if any(counts.values()):
-            raise AssertionError(f'{config}: launched {counts}')
+        # whole_and_p50's forwards: 2 + 5 at B=8, 2 + 20 at bs 1
+        want = {k: 29 * n for k, n in per_call(expected).items()}
+        if counts != want:
+            raise AssertionError(f'{config}: launched {counts}, want {want}')
         if modes:
             ran = phase_remat_train(
                 torch, kern, model, config, {}, modes,
@@ -4083,6 +4228,15 @@ def main(argv=None):
                            'resnet')
     for name in KERNELS:
         launches[name] += ran[name]
+    # 17. the fork's live heads: K1 in CARUnet's CoordAtt gates
+    ran = phase_monolithic(
+        torch, kern, init_segmentor, Config,
+        ('torch default',) + default_tf32, smi,
+        {name: focus for name, (focus, _, _) in FORK.items()}, 'fork',
+        fork_cfg, {name: k for name, (_, _, k) in FORK.items()}, BN_CALLS)
+    for name in KERNELS:
+        launches[name] += ran[name]
+    phase_fork_kernel_timing(torch, cf, err)
 
     # 10. the CoordAtt probe: kernel P
     per['dual_pools'], launches['dual_pools'], err['dual_pools'] = \

@@ -22,21 +22,27 @@ from .decode_head import BaseDecodeHead
 
 
 class CoordAtt(nn.Module):
-    """Coordinate attention gate added to x, on an NCHW (channels_last) x:
-    ``a_h * a_w + x`` (the fork adds the gate, it does not multiply).
+    """Coordinate attention on an NCHW (channels_last) x: the gate added to
+    x, ``a_h * a_w + x`` (the fork adds the gate, it does not multiply),
+    or, with ``residual=False``, the gate ``a_h * a_w`` itself.
 
     H- and W-strip means → shared 1x1 conv bottleneck (BN + h_swish) →
-    per-axis 1x1 conv + sigmoid → the outer-product gate. This is the JAX
-    module's fused ``residual=True`` branch, the only one the model uses:
-    ``strip_pools`` (K1) and ``gate_add`` (K2) are the CUDA kernels on the
-    card and their plain versions on the CPU, and ``gate_add``'s backward
-    is ``gate_dots`` (K2b).
+    per-axis 1x1 conv + sigmoid → the outer-product gate. The strip sums
+    are ``strip_pools`` (K1) in both forms: the CUDA kernel on the card,
+    its plain version on the CPU, with the JAX VJP's broadcast for its
+    backward. ``residual=True`` is the JAX module's fused branch, used by
+    STC-UNet's Up: ``gate_add`` (K2) adds the gate, and its backward is
+    ``gate_dots`` (K2b). ``residual=False`` is the JAX module's plain
+    branch (``unet_head.py:84-85``), used by CARUnet's blocks, which
+    multiply their features by the gate in torch ops; it launches no K2.
 
     The JAX model takes the fused path only when ``not train``
-    (``unet_head.py:62``) and its plain chain in training. The port keeps
-    K1, K2 and K2b in training on the card, with no switch: the functions
-    are the same (``tests/test_torch_train_step.py`` holds the train step
-    to JAX's).
+    (``unet_head.py:62``) and its plain chain, with ``jnp.mean`` strips,
+    in training. The port keeps its kernels in training on the card, with
+    no switch: the functions are the same (``tests/test_torch_train_step.py``
+    and ``tests/test_torch_carunet.py`` hold the train steps to JAX's).
+    The default is ``residual=True``, the Up stage's call; JAX's is
+    False.
     """
 
     def __init__(self, inp, oup, reduction=4):
@@ -47,7 +53,7 @@ class CoordAtt(nn.Module):
         self.conv_h = Conv2d(mip, oup, 1)
         self.conv_w = Conv2d(mip, oup, 1)
 
-    def forward(self, x):
+    def forward(self, x, residual: bool = True):
         n, c, h, w = x.shape
         xn = x.permute(0, 2, 3, 1).contiguous()            # NHWC
         sh, sw = coordatt_fused.strip_pools(xn)             # f32 sums
@@ -58,6 +64,10 @@ class CoordAtt(nn.Module):
         y_h, y_w = y[:, :, :h], y[:, :, h:].transpose(2, 3)
         a_h = torch.sigmoid(self.conv_h(y_h))               # (N, C, H, 1)
         a_w = torch.sigmoid(self.conv_w(y_w))               # (N, C, 1, W)
+        if not residual:
+            # (N, H, 1, C) * (N, 1, W, C): the gate NHWC, viewed as NCHW
+            gate = a_w.permute(0, 2, 3, 1) * a_h.permute(0, 2, 3, 1)
+            return gate.permute(0, 3, 1, 2)
         out = coordatt_fused.gate_add(
             xn, a_h[..., 0].transpose(1, 2).contiguous(),
             a_w[:, :, 0].transpose(1, 2).contiguous())

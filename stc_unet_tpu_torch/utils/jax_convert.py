@@ -5,7 +5,11 @@ The inverse of ``stc_unet_tpu/utils/torch_convert.py`` (``translate_key`` +
 neither jax nor the JAX package: the caller hands in the
 ``{'params', 'batch_stats'}`` trees as nested dicts of numpy arrays.
 
-- conv ``kernel`` HWIO → ``weight`` OIHW;
+- conv ``kernel`` HWIO → ``weight`` OIHW; under a ``ConvTranspose2d``
+  brick (``.../conv/kernel`` too: ResUNet's ``up1``, LinkNet's
+  ``tp_conv``, MultiResUnet's ``upsample6``) the port module it lands in
+  decides, as for a bare kernel below: a ``ConvTranspose2d`` takes the
+  flipped (in, out, kh, kw);
 - linear ``kernel`` (in, out) → ``weight`` (out, in), under a ``linear``
   brick or a bare ``nn.Dense`` (``.../qkv_mapping/kernel``);
 - a bare 4-D flax ``kernel`` (an ``nn.Conv`` or ``nn.ConvTranspose``
@@ -143,6 +147,15 @@ def _bare_4d_tag(key: str, modules: Dict[str, nn.Module]) -> str:
         f'{key}: a bare 4-D flax kernel for a {type(module).__name__}')
 
 
+def _brick_conv_tag(key: str, modules: Dict[str, nn.Module]) -> str:
+    """``deconv_w`` for a conv brick's kernel landing at ``key`` on a
+    ``ConvTranspose2d`` of the model, else ``conv_w``. Without the model
+    every brick kernel is a conv's: a tree with a brick ``ConvTranspose2d``
+    needs the model."""
+    module = modules.get(key.rpartition('.')[0])
+    return 'deconv_w' if isinstance(module, nn.ConvTranspose2d) else 'conv_w'
+
+
 def _behind_pool(key: str, modules: Dict[str, nn.Module]) -> str:
     """``key`` one index further in a ResNet shortcut whose first module
     is an average pool (``avg_down``: mmseg's ``downsample.1`` is the conv,
@@ -186,7 +199,9 @@ def jax_to_torch_state(variables: Dict[str, Any],
     """flax ``{'params', 'batch_stats'}`` (numpy leaves, or torch tensors
     for bfloat16) → state_dict, in float32. ``model``, the port module the
     result is for, decides how a bare 4-D kernel turns (without it such a
-    kernel raises) and whether a ResNet shortcut sits behind a pool."""
+    kernel raises), whether a conv brick's kernel is a transposed conv's
+    (without it, never) and whether a ResNet shortcut sits behind a
+    pool."""
     modules = dict(model.named_modules()) if model is not None else {}
     sd: Dict[str, torch.Tensor] = {}
     for collection in ('params', 'batch_stats'):
@@ -195,6 +210,8 @@ def jax_to_torch_state(variables: Dict[str, Any],
             v = _float32(value)
             if tag == 'kernel' and v.ndim == 4:
                 tag = _bare_4d_tag(key, modules)
+            elif tag == 'conv_w':
+                tag = _brick_conv_tag(key, modules)
             key = _behind_pool(key, modules)
             v = _transform(v, tag)
             sd[key] = torch.from_numpy(np.ascontiguousarray(v))

@@ -196,7 +196,8 @@ def jax_train_run(cfg, variables, img, gt, remat=False, steps=STEPS):
     return logs, states
 
 
-def check_train_steps(cfg, img, gt, jax_run, remat=False, min_agree=None):
+def check_train_steps(cfg, img, gt, jax_run, remat=False, min_agree=None,
+                      bn_calls=None):
     """Each of the JAX Adam steps of ``jax_run``
     (:func:`jax_train_run`) against one port step from the same state:
     the JAX variables and optax state before that step
@@ -206,7 +207,10 @@ def check_train_steps(cfg, img, gt, jax_run, remat=False, min_agree=None):
     gradient). With ``min_agree`` the moves must agree on at least that
     share of those coordinates in each step, not on all: for a model
     whose JAX f32 gradient is itself far from exact (the ResNet-50
-    models, ``tests/test_torch_psp_aspp.py``).
+    models, ``tests/test_torch_psp_aspp.py``). ``bn_calls`` gives, for a
+    ``num_batches_tracked`` key, how often its BN runs in a training
+    forward (torch counts each call; 1 if None): for a model that applies
+    one BN more than once (MultiResUnet).
 
     Each step starts from JAX's state because Adam turns gradients that
     are f32 noise into whole moves of up to lr: the weights of a ReLU
@@ -270,7 +274,8 @@ def check_train_steps(cfg, img, gt, jax_run, remat=False, min_agree=None):
                                            rtol=1e-4, atol=1e-5,
                                            err_msg=f'step {i}: {k}')
             elif k.endswith('num_batches_tracked'):
-                assert int(state[k]) == i + 1, k
+                calls = 1 if bn_calls is None else bn_calls(k)
+                assert int(state[k]) == (i + 1) * calls, k
         tracked = {k: v for k, v in state.items()
                    if k.endswith('num_batches_tracked')}
     # a tenth of the coordinates at least (SwinUNet 19 %: most of its

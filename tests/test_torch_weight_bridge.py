@@ -146,3 +146,115 @@ def test_resize_matches_jax(shape, kw, align):
     assert tuple(out.shape) == ref.shape
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
+
+
+# -- the brick ConvTranspose2d ----------------------------------------------
+
+@pytest.mark.parametrize('cin,cout,k,s,p,op', [
+    (8, 8, 2, 2, 0, 0),      # ResUNet's up1-up3, MultiResUnet's upsample
+    (6, 6, 3, 2, 1, 1),      # LinkNet's tp_conv (C/4 -> C/4)
+    (6, 5, 3, 2, 1, 1),      # LinkNet's tp_conv1 (in != out)
+])
+def test_brick_deconv_is_flipped_by_the_bridge(monkeypatch, cin, cout, k,
+                                               s, p, op):
+    """The JAX ``ConvTranspose2d`` brick keeps its kernel at
+    ``conv/kernel`` (kh, kw, in, out); landing on a port
+    ``ConvTranspose2d``, the bridge flips it into (in, out, kh, kw), and
+    the output matches JAX's. With the conv tag it had before (OIHW,
+    unflipped) a kernel of in = out loads and gives another output; one
+    of in != out does not load."""
+    from stc_unet_tpu.models.bricks import ConvTranspose2d as JaxDeconv
+    from stc_unet_tpu_torch.models.bricks import ConvTranspose2d
+    from stc_unet_tpu_torch.utils import jax_convert
+    from tests.fixtures.torch_port import random_variables
+    x = np.random.RandomState(k + cout).randn(2, 5, 4, cin).astype(
+        np.float32)
+    jmod = JaxDeconv(cout, k, s, p, op)
+    v = random_variables(jmod, jnp.asarray(x), seed=1)
+    ref = np.asarray(jax.jit(jmod.apply)(v, jnp.asarray(x)))
+    mod = ConvTranspose2d(cin, cout, k, s, p, op)
+    mod.load_state_dict(jax_to_torch_state(v, mod), strict=True)
+    with torch.no_grad():
+        out = mod(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    assert tuple(out.shape) == ref.shape == (2, 5 * s, 4 * s, cout)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+    monkeypatch.setattr(jax_convert, '_brick_conv_tag',
+                        lambda key, modules: 'conv_w')
+    old = jax_to_torch_state(v, mod)
+    if cin != cout:
+        with pytest.raises(RuntimeError, match='size mismatch'):
+            mod.load_state_dict(old, strict=True)
+        return
+    mod.load_state_dict(old, strict=True)
+    with torch.no_grad():
+        wrong = mod(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(
+            0, 2, 3, 1)
+    assert np.abs(wrong.numpy() - ref).max() > 1e-2
+
+
+def _tiny(name, **head):
+    """``my_config/<name>`` as a model dict, its decode head updated."""
+    cfg = Config.fromfile(osp.join(REPO, 'my_config', name))
+    cfg.model.decode_head.update(head)
+    return cfg.to_dict()['model']
+
+
+def _earlier_models():
+    """Tiny models of every earlier slice (their CPU tests' widths)."""
+    unet = Config.fromfile(osp.join(REPO, 'my_config', 'U-Net.py'))
+    unet.model.backbone.channel_list = [8, 16, 16, 16]
+    unet.model.decode_head.update(channels=8,
+                                  decoder_channel=[32, 32, 32, 32, 8])
+    psp = Config.fromfile(osp.join(REPO, 'my_config', 'PSPNet.py'))
+    psp.model.backbone.update(stem_channels=8, base_channels=8)
+    psp.model.decode_head.update(in_channels=256, channels=8)
+    maxvit = dict(
+        type='EncoderDecoder',
+        backbone=dict(type='MaxViT', in_channels=3, depths=(1, 1, 1, 1),
+                      channels=(8, 8, 8, 8), embed_dim=8, num_heads=2,
+                      grid_window_size=(2, 2), mlp_ratio=2),
+        decode_head=dict(type='MaxViTDecoder', in_channels=[8, 8, 8, 8],
+                         output_size=(32, 32), num_heads=2,
+                         grid_window_size=(2, 2), depths=(1, 1, 1),
+                         channels=8, num_classes=2, mlp_ratio=2.0))
+    return {
+        'STC-UNet': (_fixture_cfg(), 32),
+        'U-Net': (unet.to_dict()['model'], 32),
+        'DC-UNet': (_tiny('DC-UNet.py', nf=4), 32),
+        'UNet++': (_tiny('UNet++.py'), 32),
+        'TransUNet': (dict(type='EncoderDecoderFull', decode_head=dict(
+            type='TransUNet', img_dim=32, in_channels=3, out_channels=16,
+            head_num=4, mlp_dim=32, block_num=2, patch_dim=16,
+            class_num=2)), 32),
+        'SwinUNet': (dict(type='EncoderDecoderFull', decode_head=dict(
+            type='SwinUNet', img_size=64, patch_size=8, window_size=4,
+            out_channel=8, num_classes=2)), 64),
+        'MaxViT-UNet': (maxvit, 64),
+        'PSPNet': (psp.to_dict()['model'], 64),
+    }
+
+
+@pytest.mark.parametrize('name', ['STC-UNet', 'U-Net', 'DC-UNet', 'UNet++',
+                                  'TransUNet', 'SwinUNet', 'MaxViT-UNet',
+                                  'PSPNet'])
+def test_earlier_models_keep_their_state_dicts(monkeypatch, name):
+    """Each earlier model's state dict from a JAX tree (numpy-drawn in the
+    JAX init's shapes) is the one the bridge gave before it learnt the
+    brick ``ConvTranspose2d``: key for key and bit for bit (none of them
+    has one: DC-UNet's and MaxViT's transposed convs are bare flax
+    kernels, turned by the module type as before)."""
+    from stc_unet_tpu_torch.utils import jax_convert
+    from tests.fixtures.torch_port import random_variables
+    cfg, size = _earlier_models()[name]
+    jm = jax_build(cfg)
+    v = random_variables(jm.net, jnp.zeros((1, size, size, 3)), train=False,
+                         method=EncoderDecoderNet.forward_heads)
+    tm = build_segmentor(cfg)
+    new = jax_to_torch_state(v, tm)
+    monkeypatch.setattr(jax_convert, '_brick_conv_tag',
+                        lambda key, modules: 'conv_w')
+    old = jax_to_torch_state(v, tm)
+    assert list(new) == list(old)
+    for k, t in old.items():
+        assert new[k].dtype == t.dtype and torch.equal(new[k], t), k
+    tm.load_state_dict(new, strict=True)
