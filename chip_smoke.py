@@ -173,7 +173,16 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
     ``fork_train_check``, ``fork_timing``, ``fork_train``); then holds
     K1 to its plain version at CARUnet's seven B=8 shapes in f32 and
     bf16 with bit-identical reruns and times it there beside two
-    ``torch.sum`` and its bound (``fork_kernel_timing``).
+    ``torch.sum`` and its bound (``fork_kernel_timing``);
+18. drives the stock zoo's Swin-T UPerNet and PSPNet-R50-D8 with their
+    auxiliary FCNHeads (``ZOO``: their published widths and classes,
+    pretrained weights stripped, whole mode) as in 14, none of which
+    runs a kernel of the port (``zoo_slice``, ``zoo_train_check``,
+    ``zoo_timing``, ``zoo_train``: the step with each config's own
+    optimizer and schedule, its log vars' auxiliary losses counted);
+    then the stock PSPNet's trained protocol
+    (``stc_unet_tpu_torch.tools.parity_pspnet``: 12 epochs at 256², B=8,
+    bf16) to mDice 0.9 beside the JAX package's (``pspnet_trained``).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --grad-readings 3   # GRAD_FLOORS' readings
@@ -403,6 +412,17 @@ CARUNET_K1 = [(8, 512, 512, 16), (8, 256, 256, 32), (8, 128, 128, 64),
               (8, 512, 512, 16)]
 # MultiResUnet's Respath lengths, from the top level down
 MULTIRES_RESPATH = (4, 3, 2, 1)
+# The stock zoo (ROADMAP item 20) at its published widths and classes:
+# config -> (train check focus, the schedule file of its optimizer and lr
+# policy, None for the config's own). The stock PSPNet's configs train with
+# the 40k/80k schedules' SGD (momentum 0.9, wd 5e-4, poly 0.9).
+ZOO_SWIN = ('configs/swin/upernet_swin_tiny_patch4_window7_512x512_160k_'
+            'ade20k_pretrain_224x224_1K.py')
+ZOO_PSPNET = 'configs/_base_/models/pspnet_r50-d8.py'
+ZOO = {ZOO_SWIN: (('swin', 'backbone.stages'), None),
+       ZOO_PSPNET: (('psp', 'decode_head.psp_modules'),
+                    'configs/_base_/schedules/schedule_80k.py')}
+PSPNET_TRAINED = dict(size=256, epochs=12, batch=8, min_mdice=0.9)
 
 
 def fork_cfg(Config, name):
@@ -434,6 +454,27 @@ def multires_bn_calls(key):
 
 # The BN call counts of the configs whose BNs do not all run once a forward
 BN_CALLS = {'MultiResUnet': multires_bn_calls}
+
+
+def zoo_cfg(Config, config):
+    """``ZOO``'s config ``config`` as the zoo phases build it: its
+    pretrained weights stripped (the segmentor's ``pretrained`` path, the
+    backbone's ``Pretrained`` init_cfg), whole inference."""
+    cfg = Config.fromfile(os.path.join(REPO, config))
+    cfg.model.pretrained = None
+    cfg.model.backbone.init_cfg = None
+    cfg.model.test_cfg = dict(mode='whole')
+    return cfg
+
+
+def zoo_optim(Config, config):
+    """``(optimizer, lr_config, max_iters)`` of ``ZOO``'s config: its
+    own, or its schedule file's."""
+    schedule = ZOO[config][1]
+    cfg = Config.fromfile(os.path.join(REPO, schedule or config))
+    optimizer = {k: v for k, v in cfg.optimizer.items() if k != '_delete_'}
+    lr_config = {k: v for k, v in cfg.lr_config.items() if k != '_delete_'}
+    return optimizer, lr_config, cfg.runner.max_iters
 
 
 # the kernels a forward launches: a rematerialised step runs them again
@@ -1202,11 +1243,21 @@ def phase_launch_limits(torch, cf, wa, fa):
 
 
 def logit_measures(got, want):
-    """got against want, (1, H, W, 2) f32 logits: the largest error over
+    """got against want, (1, H, W, C) f32 logits: the largest error over
     the largest |logit|, the class margin's largest error over its spread
-    (std), the argmax agreement and the class-1 share."""
-    margin = want[..., 1] - want[..., 0]
-    margin_err = ((got[..., 1] - got[..., 0]) - margin).abs().max().item()
+    (std), the argmax agreement and the class-1 share. The margin is
+    class 1's logit less class 0's for 2 classes; for more, each pixel's
+    top logit of ``want`` less its second, both classes taken from
+    ``want`` in ``got`` too."""
+    if want.shape[-1] == 2:
+        margin = want[..., 1] - want[..., 0]
+        got_margin = got[..., 1] - got[..., 0]
+    else:
+        first, second = want.topk(2, -1).indices.split(1, -1)
+        margin = (want.gather(-1, first) - want.gather(-1, second))[..., 0]
+        got_margin = (got.gather(-1, first) -
+                      got.gather(-1, second))[..., 0]
+    margin_err = (got_margin - margin).abs().max().item()
     err, top = (got - want).abs().max().item(), want.abs().max().item()
     return dict(
         max_abs_err=err, logits_abs_max=top, logit_err_over_max=err / top,
@@ -1214,7 +1265,7 @@ def logit_measures(got, want):
         margin_err_over_spread=margin_err / margin.std().item(),
         argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float().mean()
         .item(),
-        class1_share=(margin > 0).float().mean().item())
+        class1_share=(want.argmax(-1) == 1).float().mean().item())
 
 
 def phase_tf32_check(torch, model, cpu_model_fn, tf32):
@@ -2955,12 +3006,13 @@ def phase_slice(torch, kern, model, cpu_model_fn, config, modes, expected,
                                  f'{want}')
         for k in launches:
             launches[k] += counts[k]
+        classes = model.out_channels
         if len(preds) != 2 or any(p.shape != (512, 512) or
-                                  not set(p.ravel().tolist()) <= {0, 1}
+                                  not 0 <= p.min() <= p.max() < classes
                                   for p in preds):
             raise AssertionError(f'{mode}: bad predictions')
         probs = model.inference(imgs, metas(2, 512), True)
-        if probs.shape != (2, 512, 512, 2) or \
+        if probs.shape != (2, 512, 512, classes) or \
                 not bool(torch.isfinite(probs).all()):
             raise AssertionError(f'{mode}: bad probabilities')
         served[mode] = dict(batch=2, launches=counts,
@@ -3294,14 +3346,17 @@ def phase_fork_kernel_timing(torch, cf, err):
 
 
 def train_step_for(torch, model, compute_dtype=None, mesh=None,
-                   remat=False):
+                   remat=False, optim=None):
     """The port's train step on model and its optimizer: bench.py's Adam
-    and poly lr (over the ranks of ``mesh``, if given; rematerialising
-    the whole loss with ``remat``)."""
+    and poly lr, or ``optim`` (``(optimizer, lr_config, max_iters)``)
+    (over the ranks of ``mesh``, if given; rematerialising the whole loss
+    with ``remat``)."""
     from stc_unet_tpu_torch.core import build_lr_schedule, build_optimizer
     from stc_unet_tpu_torch.engine import make_train_step
-    schedule = build_lr_schedule(LR_CONFIG, OPTIMIZER['lr'], MAX_ITERS)
-    optimizer = build_optimizer(model, OPTIMIZER)
+    opt_cfg, lr_config, max_iters = optim or (OPTIMIZER, LR_CONFIG,
+                                              MAX_ITERS)
+    schedule = build_lr_schedule(lr_config, opt_cfg['lr'], max_iters)
+    optimizer = build_optimizer(model, opt_cfg)
     return make_train_step(model, optimizer, schedule,
                            compute_dtype=compute_dtype, mesh=mesh,
                            remat=remat), optimizer
@@ -3638,11 +3693,13 @@ def remat_checks(torch, init_segmentor, remat, cfg, state, img, gt,
 
 def phase_train(torch, kern, model, settings, config, expected,
                 dropout_ratio, phase='train', batch=TRAIN_BATCH, remat=False,
-                profile=True):
+                profile=True, optim=None):
     """bench.py's train step on the full-width model: ``batch`` (B=8)
-    images at 512², bf16 compute, Adam lr 1e-5 with the poly lr, the
-    config's dropout from a seeded generator (``remat``: the step
-    rematerialises its whole loss). Per TF32 setting ``(label, cudnn,
+    images at 512², bf16 compute, Adam lr 1e-5 with the poly lr (or
+    ``optim``, ``train_step_for``'s), the config's dropout from a seeded
+    generator (``remat``: the step rematerialises its whole loss); the
+    auxiliary heads' entries of the log vars are counted. Per TF32
+    setting ``(label, cudnn,
     matmul)``: 2 warm-up steps, each checked to launch the kernels
     ``expected`` times, then 10 steps timed with one CUDA event pair; the
     loss must be finite and every parameter must move. With ``profile``
@@ -3658,13 +3715,15 @@ def phase_train(torch, kern, model, settings, config, expected,
     rows = []
     for label, cudnn, matmul in settings:
         set_tf32(torch, cudnn, matmul)
-        step, _ = train_step_for(torch, model, torch.bfloat16, remat=remat)
+        step, _ = train_step_for(torch, model, torch.bfloat16, remat=remat,
+                                 optim=optim)
         before = {k: p.detach().clone() for k, p in params.items()}
         torch.cuda.reset_peak_memory_stats()
         losses = []
         for _ in range(2):
             reset_counts(kern)
-            losses.append(step(img, gt, drop)['loss'])
+            log_vars = step(img, gt, drop)
+            losses.append(log_vars['loss'])
             counts = read_counts(kern)
             if counts != want:
                 raise AssertionError(f'train step launches {counts}, want '
@@ -3704,10 +3763,15 @@ def phase_train(torch, kern, model, settings, config, expected,
                  tf32=label,
                  **profile_run(torch, lambda: step(img, gt, drop), ms))
     set_tf32(torch, False, False)
+    opt_cfg, lr_config, max_iters = optim or (OPTIMIZER, LR_CONFIG,
+                                              MAX_ITERS)
+    aux = sorted(k for k in log_vars if k.startswith('aux'))
     emit(phase, ok=True, config=config, batch=batch, remat=remat,
-         size=512, compute_dtype='bfloat16', optimizer=OPTIMIZER,
-         lr_config=LR_CONFIG, max_iters=MAX_ITERS,
-         dropout_ratio=dropout_ratio,
+         size=512, compute_dtype='bfloat16', optimizer=opt_cfg,
+         lr_config=lr_config, max_iters=max_iters,
+         dropout_ratio=dropout_ratio, log_vars=sorted(log_vars),
+         aux_log_vars=aux,
+         aux_losses=sum(1 for k in aux if 'loss' in k),
          timer='one CUDA event pair over 10 steps after 2 warm-up steps',
          launches_per_step=want, rows=rows)
     return launches
@@ -3849,15 +3913,21 @@ def grad_readings(torch, init_segmentor, Config, seeds):
 
 def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi,
                      configs=MONOLITHIC, prefix='monolithic',
-                     load=config_file, forward=None, bn_calls=None):
+                     load=config_file, forward=None, bn_calls=None,
+                     stats_yard=RESNET, optims=None):
     """U-Net and the paper's monolithic baselines (``MONOLITHIC``), the
-    ResNet-50 baselines (``RESNET``, with ``prefix`` ``'resnet'``), or the
+    ResNet-50 baselines (``RESNET``, with ``prefix`` ``'resnet'``), the
     fork's live heads (``FORK``, ``prefix`` ``'fork'``, ``load``
-    ``fork_cfg``), each at full width from seed 0. ``forward`` gives a
+    ``fork_cfg``) or the stock zoo (``ZOO``, ``'zoo'``, ``zoo_cfg``),
+    each at full width from seed 0. ``forward`` gives a
     config's kernel launches a forward, which a train step repeats (none
     if not given: only CARUnet's CoordAtt gates launch K1); each request,
     timed call and step is checked against them. ``bn_calls`` gives a
-    config's BN call counts (``phase_train_check``):
+    config's BN call counts (``phase_train_check``); the configs in
+    ``stats_yard`` hold their BN stats with the one-ulp yardstick too
+    (its ``stats_yard``); ``optims`` gives a config's ``(optimizer,
+    lr_config, max_iters)`` for its timed step (bench.py's Adam if
+    not):
 
     - ``monolithic_slice``: whole requests of B=2 at 512² in bf16 through
       the entry point, the ``forward`` launches, the card's f32 logits (TF32
@@ -3914,7 +3984,8 @@ def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi,
                           step2_from_cpu=True,
                           grad_floor=GRAD_FLOORS.get(config, GRAD_FLOOR),
                           remat=(kern, config, with_cp_cfg, modes)
-                          if modes else None, stats_yard=config in RESNET,
+                          if modes else None,
+                          stats_yard=config in stats_yard,
                           bn_calls=(bn_calls or {}).get(config))
         set_tf32(torch, cudnn, matmul)
         g = torch.Generator(device='cuda').manual_seed(3)
@@ -3936,7 +4007,8 @@ def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi,
             try:
                 trained = phase_train(torch, kern, model, [tf32], config,
                                       expected, 'the config\'s',
-                                      f'{prefix}_train', batch=batch)
+                                      f'{prefix}_train', batch=batch,
+                                      optim=(optims or {}).get(config))
                 break
             except torch.cuda.OutOfMemoryError as e:
                 oom.append(dict(batch=batch,
@@ -3970,6 +4042,47 @@ def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi,
         del model
         torch.cuda.empty_cache()
     return launches
+
+
+def phase_pspnet_trained(torch, kern, tf32):
+    """The stock PSPNet's trained protocol on the card
+    (``stc_unet_tpu_torch.tools.parity_pspnet``, ``PSPNET_TRAINED``: the
+    JAX tool's fixture, config surgery and 12 epochs at 256², B=8, bf16,
+    through the train and test CLIs) at the TF32 setting ``tf32``; its
+    checkpoint must reach mDice ``min_mdice`` through the test CLI, and
+    the steps' log vars must hold the auxiliary head's loss. Prints the
+    port's mDice and mIoU beside the JAX package's
+    (``PARITY_PSPNET.json``); the model launches no kernel of the
+    port."""
+    from stc_unet_tpu_torch.tools import parity_pspnet
+    label, cudnn, matmul = tf32
+    set_tf32(torch, cudnn, matmul)
+    work = os.path.join(REPO, 'work_dirs')
+    os.makedirs(work, exist_ok=True)
+    reset_counts(kern)
+    with tempfile.TemporaryDirectory(dir=work) as root:
+        t = PSPNET_TRAINED
+        record = parity_pspnet.main([
+            '--work-dir', root, '--device', 'cuda', '--size', str(t['size']),
+            '--epochs', str(t['epochs']), '--batch', str(t['batch'])])
+    counts = read_counts(kern)
+    set_tf32(torch, False, False)
+    record.pop('checkpoint')
+    losses = record.pop('losses')
+    faults = []
+    if record['port']['mDice'] < t['min_mdice']:
+        faults.append(f'mDice {record["port"]["mDice"]} < '
+                      f'{t["min_mdice"]}')
+    if 'aux.loss_ce' not in losses:
+        faults.append(f'no auxiliary loss among {sorted(losses)}')
+    if any(counts.values()):
+        faults.append(f'launched {counts}')
+    emit('pspnet_trained', ok=not faults, faults=faults, tf32=label,
+         min_mdice=t['min_mdice'], launches=counts,
+         first_losses={k: v[0] for k, v in losses.items()},
+         last_losses={k: v[-1] for k, v in losses.items()}, **record)
+    if faults:
+        raise AssertionError(f'pspnet_trained: {faults}')
 
 
 def _kernel_group(name):
@@ -4237,6 +4350,18 @@ def main(argv=None):
     for name in KERNELS:
         launches[name] += ran[name]
     phase_fork_kernel_timing(torch, cf, err)
+    # 18. the stock zoo: Swin-T UPerNet and PSPNet-R50-D8 with their
+    # auxiliary FCNHeads, no kernel; then the stock PSPNet's trained
+    # protocol
+    ran = phase_monolithic(
+        torch, kern, init_segmentor, Config,
+        ('torch default',) + default_tf32, smi,
+        {config: focus for config, (focus, _) in ZOO.items()}, 'zoo',
+        zoo_cfg, stats_yard=ZOO,
+        optims={config: zoo_optim(Config, config) for config in ZOO})
+    for name in KERNELS:
+        launches[name] += ran[name]
+    phase_pspnet_trained(torch, kern, ('torch default',) + default_tf32)
 
     # 10. the CoordAtt probe: kernel P
     per['dual_pools'], launches['dual_pools'], err['dual_pools'] = \

@@ -190,8 +190,14 @@ def load_opt_state(optimizer: torch.optim.Optimizer, model,
                          f'{type(optimizer).__name__} needs '
                          f'{[need] if need else []}')
 
+    buffers = dict(model.named_buffers())
+
     def moments(field):
-        sd = jax_to_torch_state({'params': kinds[need][field]}, model)
+        # the bridge adds the Swin backbone's relative_position_index
+        # buffers beside their bias tables: no moment of them
+        sd = {k: v for k, v in jax_to_torch_state(
+            {'params': kinds[need][field]}, model).items()
+            if k not in buffers}
         shapes = {k: tuple(v.shape) for k, v in sd.items()}
         want = {k: tuple(p.shape) for k, p in params.items()}
         if shapes != want:

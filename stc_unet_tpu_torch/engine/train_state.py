@@ -148,14 +148,25 @@ def _global_means(model, log_vars, gt, group):
     rank, and every rank holds as many, so the global one is the ranks'
     mean; an accuracy (``*acc_seg``) is a mean over the labelled pixels,
     so it is weighted by the rank's count of them (labels other than the
-    decode head's ``ignore_index``)."""
+    ``ignore_index`` of the head that computed it: ``decode.acc_seg``'s,
+    ``aux.acc_seg``'s, ...)."""
     keys = list(log_vars)
     values = torch.stack([log_vars[k].detach().float() for k in keys])
     one = values.new_ones(())
-    labelled = (torch.as_tensor(gt, device=values.device) !=
-                model.decode_head.ignore_index).sum().float()
-    weights = torch.stack([labelled if k.endswith('acc_seg') else one
-                           for k in keys])
+    gt = torch.as_tensor(gt, device=values.device)
+    heads = dict(model.loss_heads())
+    labelled = {}
+
+    def weight(key):
+        if not key.endswith('acc_seg'):
+            return one
+        ignore = heads.get(key.partition('.')[0],
+                           model.decode_head).ignore_index
+        if ignore not in labelled:
+            labelled[ignore] = (gt != ignore).sum().float()
+        return labelled[ignore]
+
+    weights = torch.stack([weight(k) for k in keys])
     sums = torch.cat([values * weights, weights])
     dist.all_reduce(sums, group=group)
     means = sums[:len(keys)] / sums[len(keys):]

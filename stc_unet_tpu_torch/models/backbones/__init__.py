@@ -1,5 +1,7 @@
 from .maxvit_encoder import MaxViT
 from .resnet import ResNet, ResNetV1c, ResNetV1d
+from .swin import SwinTransformer
 from .unet_backbone import UnetBackbone
 
-__all__ = ['MaxViT', 'ResNet', 'ResNetV1c', 'ResNetV1d', 'UnetBackbone']
+__all__ = ['MaxViT', 'ResNet', 'ResNetV1c', 'ResNetV1d', 'SwinTransformer',
+           'UnetBackbone']

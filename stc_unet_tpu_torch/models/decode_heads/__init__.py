@@ -3,6 +3,7 @@ from .carunet_head import CADRB, CARUnet, DenseASPPBlock, SKAttention
 from .dc_unet_head import DC_Unet
 from .decode_head import BaseDecodeHead, resolve_out_channels
 from .extra_unet_heads import LinkNet, MultiResUnet, ResUNet
+from .fcn_head import FCNHead
 from .maxvit_decoder import MaxViTDecoder
 from .psp_head import PSPHead
 from .sep_aspp_head import DepthwiseSeparableASPPHead
@@ -10,9 +11,11 @@ from .swinunet_head import SwinUNet
 from .transunet_head import TransUNet, TransUNetModule
 from .unet_head import CoordAtt, UnetHead
 from .unetpp_head import UnetPlusPlus
+from .uper_head import UPerHead
 
 __all__ = ['ASPPHead', 'BaseDecodeHead', 'CADRB', 'CARUnet', 'CoordAtt',
            'DC_Unet', 'DenseASPPBlock', 'DepthwiseSeparableASPPHead',
-           'LinkNet', 'MaxViTDecoder', 'MultiResUnet', 'PSPHead', 'ResUNet',
-           'SKAttention', 'SwinUNet', 'TransUNet', 'TransUNetModule',
-           'UnetHead', 'UnetPlusPlus', 'resolve_out_channels']
+           'FCNHead', 'LinkNet', 'MaxViTDecoder', 'MultiResUnet', 'PSPHead',
+           'ResUNet', 'SKAttention', 'SwinUNet', 'TransUNet',
+           'TransUNetModule', 'UPerHead', 'UnetHead', 'UnetPlusPlus',
+           'resolve_out_channels']

@@ -22,7 +22,10 @@ unsharded order. Every rank must make the call.
 Training is ``forward_train``/``compute_losses`` in the module's current
 mode: call ``.train()`` first, as ``EncoderDecoder.__init__`` and
 ``init_segmentor`` leave the model in eval. ``engine.make_train_step``
-does that, and takes the optimizer step.
+does that, and takes the optimizer step. The auxiliary heads (one, or a
+list: mmseg's ``nn.ModuleList``) run there only, on the backbone's
+features, never at inference; their losses join the decode head's under
+``aux`` (one head) or ``aux_{i}``.
 """
 from __future__ import annotations
 
@@ -43,24 +46,42 @@ from ..builder import SEGMENTORS
 from .base import BaseSegmentor
 
 
+def _pretrained(init_cfg) -> bool:
+    return isinstance(init_cfg, dict) and init_cfg.get('type') == 'Pretrained'
+
+
 @SEGMENTORS.register_module()
 class EncoderDecoder(BaseSegmentor):
-    """backbone → decode_head."""
+    """backbone → decode_head (and the auxiliary heads, in training)."""
 
     def __init__(self, backbone, decode_head, neck=None, auxiliary_head=None,
                  train_cfg=None, test_cfg=None, pretrained=None,
                  init_cfg=None):
         super().__init__(init_cfg)
-        if neck is not None or auxiliary_head is not None:
+        if neck is not None:
             raise NotImplementedError(
-                'necks and auxiliary heads are not ported yet')
-        if pretrained is not None or backbone.get('pretrained'):
+                'necks are not ported yet (ROADMAP.md §1, item 20: the '
+                'necks)')
+        if pretrained is not None or backbone.get('pretrained') or \
+                _pretrained(backbone.get('init_cfg')) or \
+                _pretrained(init_cfg):
             raise NotImplementedError(
-                'pretrained backbones are not ported yet')
+                'pretrained weights are not loaded yet (ROADMAP.md §1, '
+                'item 20); strip the pretrained path or the Pretrained '
+                'init_cfg to train from random weights')
         self.backbone = builder.build_backbone(backbone)
+        feature_channels = dict(feature_channels=self.backbone.out_channels)
         self.decode_head = builder.build_head(
-            decode_head,
-            default_args=dict(feature_channels=self.backbone.out_channels))
+            decode_head, default_args=feature_channels)
+        if isinstance(auxiliary_head, (list, tuple)):
+            self.auxiliary_head = nn.ModuleList([
+                builder.build_head(c, default_args=feature_channels)
+                for c in auxiliary_head])
+        elif auxiliary_head is not None:
+            self.auxiliary_head = builder.build_head(
+                auxiliary_head, default_args=feature_channels)
+        else:
+            self.auxiliary_head = None
         self.align_corners = self.decode_head.align_corners
         self.num_classes = self.decode_head.num_classes
         self.out_channels = self.decode_head.final_out_channels
@@ -104,6 +125,18 @@ class EncoderDecoder(BaseSegmentor):
         return self
 
     # -- helpers -------------------------------------------------------------
+    def loss_heads(self):
+        """``(prefix, head)`` of every head that adds losses: ``decode``,
+        then ``aux`` for one auxiliary head or ``aux_{i}`` for a list (JAX
+        ``encoder_decoder.py:250-269``)."""
+        heads = [('decode', self.decode_head)]
+        if isinstance(self.auxiliary_head, nn.ModuleList):
+            heads += [(f'aux_{i}', h) for i, h in
+                      enumerate(self.auxiliary_head)]
+        elif self.auxiliary_head is not None:
+            heads.append(('aux', self.auxiliary_head))
+        return heads
+
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
@@ -169,9 +202,12 @@ class EncoderDecoder(BaseSegmentor):
         if gt.ndim == 4:
             gt = gt[..., 0] if gt.shape[-1] == 1 else gt[:, 0]
         feats = self.backbone(img.permute(0, 3, 1, 2), generator)
-        logits = self.decode_head(feats, generator)
-        return add_prefix(self.decode_head.loss_by_feat(
-            logits.permute(0, 2, 3, 1), gt), 'decode')
+        losses = {}
+        for prefix, head in self.loss_heads():
+            logits = head(feats, generator)
+            losses.update(add_prefix(head.loss_by_feat(
+                logits.permute(0, 2, 3, 1), gt), prefix))
+        return losses
 
     def forward_train(self, img, img_metas, gt_semantic_seg, generator=None,
                       **kwargs):

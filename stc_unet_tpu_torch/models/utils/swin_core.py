@@ -7,19 +7,22 @@ partition and reverse are reshapes and permutes; the shifted-window mask
 is computed with numpy from the static resolution at construction and
 kept as a buffer; attention is plain batched matmuls over (windows·B,
 heads, N, N), as the JAX SwinUNet computes it in einsums (no kernel).
-Only ``pad_to_window=False`` is ported, the branch SwinUNet uses: a map
+``SwinTransformerBlock(pad_to_window=False)`` is SwinUNet's branch: a map
 no larger than the window shrinks the window to the map and drops the
-shift."""
+shift. ``pad_to_window=True`` is the Swin backbone's: the window is
+kept, the map is zero-padded bottom and right to a window multiple
+inside the block and cropped back after attention
+(:func:`shifted_window_msa`, which the backbone's blocks share)."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..bricks import Conv2d, LayerNorm, Linear, drop_scaled
+from ..bricks import Conv2d, Dropout, LayerNorm, Linear, drop_scaled
 
 
 def drop_path(x, rate: float, generator: Optional[torch.Generator] = None):
@@ -103,6 +106,49 @@ def shifted_window_mask(h: int, w: int, window_size: int,
     return np.where(attn_mask != 0, -100.0, 0.0).astype(np.float32)
 
 
+_MASKS: Dict[tuple, torch.Tensor] = {}
+
+
+def window_mask(h: int, w: int, window_size: int, shift_size: int,
+                device) -> Optional[torch.Tensor]:
+    """:func:`shifted_window_mask` of an (h, w) canvas as a tensor on
+    ``device``, made once a shape and device."""
+    if shift_size == 0:
+        return None
+    key = (h, w, window_size, shift_size, torch.device(device))
+    if key not in _MASKS:
+        _MASKS[key] = torch.from_numpy(shifted_window_mask(
+            h, w, window_size, shift_size)).to(device)
+    return _MASKS[key]
+
+
+def shifted_window_msa(x, h: int, w: int, attn, window_size: int,
+                       shift_size: int, mask=None, generator=None):
+    """(S)W-MSA on (B, H·W, C) tokens of an h×w map: the map zero-padded
+    bottom and right to a window multiple (nothing to pad: no copy),
+    rolled by ``-shift_size``, its windows through ``attn`` (a
+    :class:`WindowAttention`, with ``mask`` made over the padded canvas:
+    the padded tokens are not masked as keys, they attend as zeros),
+    reversed, rolled back and cropped to h×w."""
+    b, _, c = x.shape
+    ws, s = window_size, shift_size
+    x = x.reshape(b, h, w, c)
+    pad_b, pad_r = (ws - h % ws) % ws, (ws - w % ws) % ws
+    if pad_b or pad_r:
+        x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+    hp, wp = h + pad_b, w + pad_r
+    if s > 0:
+        x = torch.roll(x, (-s, -s), (1, 2))
+    windows = window_partition(x, ws).reshape(-1, ws * ws, c)
+    windows = attn(windows, mask, generator)
+    x = window_reverse(windows.reshape(-1, ws, ws, c), ws, hp, wp)
+    if s > 0:
+        x = torch.roll(x, (s, s), (1, 2))
+    if pad_b or pad_r:
+        x = x[:, :h, :w]
+    return x.reshape(b, h * w, c)
+
+
 def init_bias_table_(table: torch.Tensor, generator: torch.Generator):
     """A relative-position bias table from a normal of std 0.02 cut at 2
     std (flax's ``truncated_normal(0.02)``), drawn on the CPU."""
@@ -112,28 +158,38 @@ def init_bias_table_(table: torch.Tensor, generator: torch.Generator):
 
 class WindowAttention(nn.Module):
     """W-MSA with a relative-position bias table, on (windows·B, N, C):
-    ``softmax((q · head_dim^-0.5) kᵀ + bias (+ mask)) v``, then ``proj``.
-    SwinUNet's attention and projection dropout rates are 0, so there is
-    none."""
+    ``softmax((q · head_dim^-0.5) kᵀ + bias (+ mask)) v``, then ``proj``,
+    with dropout on the attention and the projection where their rates
+    are set (SwinUNet's are 0: no dropout module). ``persistent_index``
+    keeps the (N, N) ``relative_position_index`` in the state dict, as
+    the fork's Swin backbone (mmseg's ``WindowMSA``) does; SwinUNet's is
+    a buffer outside it."""
 
     def __init__(self, dim: int, window_size: Tuple[int, int],
-                 num_heads: int):
+                 num_heads: int, qkv_bias: bool = True,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 persistent_index: bool = False):
         super().__init__()
         wh, ww = window_size
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * wh - 1) * (2 * ww - 1), num_heads))
+        index = relative_position_index((wh, ww))
         self.register_buffer('relative_position_index', torch.from_numpy(
-            relative_position_index((wh, ww)).reshape(-1)).long(),
-            persistent=False)
-        self.qkv = Linear(dim, dim * 3)
+            index if persistent_index else index.reshape(-1)).long(),
+            persistent=persistent_index)
+        self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = Linear(dim, dim)
+        if attn_drop > 0:
+            self.attn_drop = Dropout(attn_drop)
+        if proj_drop > 0:
+            self.proj_drop = Dropout(proj_drop)
 
     def reset_parameters(self, generator: torch.Generator):
         init_bias_table_(self.relative_position_bias_table, generator)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, generator=None):
         b_, n, c = x.shape
         heads = self.num_heads
         qkv = self.qkv(x).reshape(b_, n, 3, heads, c // heads).permute(
@@ -141,16 +197,21 @@ class WindowAttention(nn.Module):
         q, k, v = qkv[0], qkv[1], qkv[2]
         attn = (q * self.scale) @ k.transpose(-2, -1)
         bias = self.relative_position_bias_table[
-            self.relative_position_index].reshape(n, n, heads).permute(
-                2, 0, 1)
+            self.relative_position_index.view(-1)].reshape(
+                n, n, heads).permute(2, 0, 1)
         attn = attn + bias[None].to(attn.dtype)
         if mask is not None:
             nw = mask.shape[0]
             attn = attn.reshape(b_ // nw, nw, heads, n, n) + \
                 mask.to(attn.dtype)[None, :, None]
             attn = attn.reshape(-1, heads, n, n)
-        x = (torch.softmax(attn, -1) @ v).transpose(1, 2).reshape(b_, n, c)
-        return self.proj(x)
+        attn = torch.softmax(attn, -1)
+        if hasattr(self, 'attn_drop'):
+            attn = self.attn_drop(attn, generator)
+        x = self.proj((attn @ v).transpose(1, 2).reshape(b_, n, c))
+        if hasattr(self, 'proj_drop'):
+            x = self.proj_drop(x, generator)
+        return x
 
 
 class SwinMlp(nn.Module):
@@ -167,23 +228,21 @@ class SwinMlp(nn.Module):
 
 class SwinTransformerBlock(nn.Module):
     """(S)W-MSA and an MLP, pre-LN, with DropPath per sample, on (B, H·W,
-    C) tokens of the static ``input_resolution``. A map no larger than the
-    window shrinks the window to the map and drops the shift (the JAX
-    ``pad_to_window=False``); ``pad_to_window=True`` belongs to the Swin
-    backbone, which is not ported (ROADMAP.md §1, item 20)."""
+    C) tokens of the static ``input_resolution``. Without
+    ``pad_to_window`` (SwinUNet) a map no larger than the window shrinks
+    the window to the map and drops the shift; with it (the Swin
+    backbone, JAX ``swin_core.py:183-215``) the window is kept, and the
+    ``norm1`` output is zero-padded to a window multiple, attended with
+    the shift mask of the padded canvas and cropped back
+    (:func:`shifted_window_msa`)."""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int = 7, shift_size: int = 0,
                  mlp_ratio: float = 4.0, drop_path: float = 0.0,
                  pad_to_window: bool = False):
         super().__init__()
-        if pad_to_window:
-            raise NotImplementedError(
-                'SwinTransformerBlock(pad_to_window=True) belongs to the '
-                'Swin backbone, which is not ported yet (ROADMAP.md §1, '
-                'item 20)')
         h, w = input_resolution
-        if min(h, w) <= window_size:
+        if not pad_to_window and min(h, w) <= window_size:
             shift_size, window_size = 0, min(h, w)
         self.input_resolution = (h, w)
         self.window_size, self.shift_size = window_size, shift_size
@@ -194,27 +253,21 @@ class SwinTransformerBlock(nn.Module):
         self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = SwinMlp(dim, int(dim * mlp_ratio), dim)
         self.drop_path2 = DropPath(drop_path)
-        mask = shifted_window_mask(h, w, window_size, shift_size)
+        ws = window_size
+        mask = shifted_window_mask(h + (ws - h % ws) % ws,
+                                   w + (ws - w % ws) % ws, ws, shift_size)
         self.register_buffer('attn_mask', None if mask is None else
                              torch.from_numpy(mask), persistent=False)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
-        (h, w), ws, s = self.input_resolution, self.window_size, \
-            self.shift_size
+        h, w = self.input_resolution
         b, l, c = x.shape
         if l != h * w:
             raise ValueError(f'SwinTransformerBlock: {l} tokens, want '
                              f'{h}x{w}')
-        shortcut = x
-        x = self.norm1(x).reshape(b, h, w, c)
-        if s > 0:
-            x = torch.roll(x, (-s, -s), (1, 2))
-        windows = window_partition(x, ws).reshape(-1, ws * ws, c)
-        windows = self.attn(windows, self.attn_mask)
-        x = window_reverse(windows.reshape(-1, ws, ws, c), ws, h, w)
-        if s > 0:
-            x = torch.roll(x, (s, s), (1, 2))
-        x = shortcut + self.drop_path1(x.reshape(b, h * w, c), generator)
+        x = x + self.drop_path1(shifted_window_msa(
+            self.norm1(x), h, w, self.attn, self.window_size,
+            self.shift_size, self.attn_mask), generator)
         return x + self.drop_path2(self.mlp(self.norm2(x)), generator)
 
 

@@ -248,9 +248,10 @@ def main(argv=None):
             loader=type(runner.data_loader).__name__,
             batch_device=str(run['batch'][0].device),
             checkpoint=osp.join(wd, 'latest.pth'),
-            **_evaluate(test_cli, data_root, cfg_path,
-                        osp.join(wd, 'latest.pth'),
-                        osp.join(work, f'metrics_{mode}'), args))
+            **evaluate_checkpoint(test_cli, data_root, cfg_path,
+                                  osp.join(wd, 'latest.pth'),
+                                  osp.join(work, f'metrics_{mode}'),
+                                  args.test_imgs, args.device))
         if not last:
             if runner.device.type == 'cuda':
                 record['runs'][mode].update(_step_alone(runner, run))
@@ -281,19 +282,21 @@ def main(argv=None):
     return record
 
 
-def _evaluate(test_cli, data_root, cfg_path, checkpoint, json_dir, args):
-    """``checkpoint`` through the test CLI on the test split: the port's
-    mIoU and mDice, the CLI's seconds and slices/s."""
+def evaluate_checkpoint(test_cli, data_root, cfg_path, checkpoint,
+                        json_dir, test_imgs, device):
+    """``checkpoint`` through the test CLI on the test split of
+    ``test_imgs`` images: the port's mIoU and mDice, the CLI's seconds and
+    slices/s."""
     t0 = time.perf_counter()
     test_cli.main([f'{data_root}/test/images', cfg_path, checkpoint,
                    '--eval', 'mIoU', 'mDice', '--work-dir', json_dir,
-                   '--device', args.device])
+                   '--device', device])
     test_s = time.perf_counter() - t0
     newest = sorted(f for f in os.listdir(json_dir) if f.endswith('.json'))
     with open(osp.join(json_dir, newest[-1])) as f:
         metric = json.load(f)['metric']
     return dict(port={k: float(metric[k]) for k in ('mIoU', 'mDice')},
-                test_s=test_s, test_slices_per_s=args.test_imgs / test_s)
+                test_s=test_s, test_slices_per_s=test_imgs / test_s)
 
 
 def _step_alone(runner, run, iters=10):

@@ -51,7 +51,19 @@ ConvModule is ``psp_modules.{i}.1`` (behind its pool), the image-pool
 ConvModule ``image_pool.1``, ``sep_bottleneck_{i}`` is
 ``sep_bottleneck.{i}``, and under ``avg_down`` a shortcut's conv and BN
 are ``downsample.1`` and ``.2`` (behind its pool: the model must be given
-to tell).
+to tell); mmseg's ``ConvModule`` lists (``convs_{i}``,
+``lateral_convs_{i}``, ``fpn_convs_{i}``) become ``convs.{i}``,
+``lateral_convs.{i}``, ``fpn_convs.{i}``. The Swin backbone takes the
+fork's (mmseg v0.29.1) keys: ``patch_embed.proj`` is
+``patch_embed.projection``, a block's ``attn`` is ``attn.w_msa``, its
+``mlp.fc1`` and ``mlp.fc2`` are ``ffn.layers.0.0`` and ``ffn.layers.1``,
+the fork's ``relative_position_index`` buffer is added beside each bias
+table, and the 4C axis of a ``PatchMerging``'s norm and reduction is
+permuted from the JAX concatenation (x00, x10, x01, x11, channel-minor)
+to the fork's ``nn.Unfold`` order (channel-major; :func:`merge_order`).
+The auxiliary heads (flax ``auxiliary_head_{i}``) are
+``auxiliary_head`` for one head and ``auxiliary_head.{i}`` for a list,
+as the model given holds them (one head without a model).
 """
 from __future__ import annotations
 
@@ -93,9 +105,31 @@ _RULES = (
     (re.compile(r'\bimage_pool_conv\b'), lambda m: 'image_pool.1'),
     (re.compile(r'\bsep_bottleneck_(\d+)\b'),
      lambda m: f'sep_bottleneck.{m.group(1)}'),
+    (re.compile(r'\b(convs|lateral_convs|fpn_convs|auxiliary_head)_(\d+)'
+                r'\b'),
+     lambda m: f'{m.group(1)}.{m.group(2)}'),
+)
+# the fork's names in the Swin backbone, taken where the model has the
+# renamed module (SwinUNet has none of them: it keeps the flax names)
+_SWIN_FORK = (
+    (re.compile(r'\bpatch_embed\.proj$'), 'patch_embed.projection'),
+    (re.compile(r'\b(blocks\.\d+)\.attn\b'), r'\1.attn.w_msa'),
+    (re.compile(r'\b(blocks\.\d+)\.mlp\.fc1$'), r'\1.ffn.layers.0.0'),
+    (re.compile(r'\b(blocks\.\d+)\.mlp\.fc2$'), r'\1.ffn.layers.1'),
 )
 # a ResNet shortcut's conv and BN (flax ``downsample/0``, ``/1``)
 _DOWNSAMPLE = re.compile(r'^(.*\.downsample)\.(\d)\.(\w+)$')
+_BIAS_TABLE = '.attn.w_msa.relative_position_bias_table'
+
+
+def merge_order(width: int) -> np.ndarray:
+    """The JAX index of each position of a merged Swin token's ``width``
+    (4C) axis in the fork's order: the fork's 4c + p (p the 2×2
+    position in ``nn.Unfold``'s order x00, x01, x10, x11) holds the JAX
+    q·C + c (q in the official order x00, x10, x01, x11)."""
+    c = width // 4
+    q = np.array([0, 2, 1, 3])          # the fork's p as the JAX q
+    return (q[None, :] * c + np.arange(c)[:, None]).reshape(-1)
 
 
 def translate_path(path: Tuple[str, ...], collection: str = 'params'):
@@ -167,6 +201,39 @@ def _behind_pool(key: str, modules: Dict[str, nn.Module]) -> str:
     return f'{m.group(1)}.{int(m.group(2)) + 1}.{m.group(3)}'
 
 
+def port_key(path: Tuple[str, ...], collection: str = 'params',
+             modules: Optional[Dict[str, nn.Module]] = None):
+    """One flax leaf path → (the port's key, transform tag) for the model
+    of ``modules`` (its ``named_modules()``): :func:`translate_path`, then
+    what the model decides (the auxiliary heads' index, the Swin
+    backbone's fork names, a shortcut behind a pool, a transposed conv
+    brick). A bare kernel keeps its ``kernel`` tag: its rank decides
+    (:func:`jax_to_torch_state`)."""
+    modules = modules or {}
+    key, tag = translate_path(path, collection)
+    module, _, name = key.rpartition('.')
+    if module.startswith('auxiliary_head.') and not isinstance(
+            modules.get('auxiliary_head'), nn.ModuleList):
+        module = 'auxiliary_head.' + module.split('.', 2)[2]
+    for pattern, repl in _SWIN_FORK:
+        fork = pattern.sub(repl, module)
+        if fork != module and fork in modules:
+            module = fork
+    key = _behind_pool(f'{module}.{name}' if module else name, modules)
+    if tag == 'conv_w':
+        tag = _brick_conv_tag(key, modules)
+    return key, tag
+
+
+def merged(key: str, modules: Dict[str, nn.Module]) -> bool:
+    """Whether ``key`` is a tensor of a Swin backbone ``PatchMerging`` of
+    the model (its norm or reduction), whose 4C axis takes the fork's
+    order."""
+    from stc_unet_tpu_torch.models.backbones.swin import PatchMerging
+    owner = key.rpartition('.')[0].rpartition('.')[0]
+    return isinstance(modules.get(owner), PatchMerging)
+
+
 def _transform(value: np.ndarray, tag: str) -> np.ndarray:
     if tag == 'conv_w':
         return np.transpose(value, (3, 2, 0, 1))
@@ -200,22 +267,29 @@ def jax_to_torch_state(variables: Dict[str, Any],
     for bfloat16) → state_dict, in float32. ``model``, the port module the
     result is for, decides how a bare 4-D kernel turns (without it such a
     kernel raises), whether a conv brick's kernel is a transposed conv's
-    (without it, never) and whether a ResNet shortcut sits behind a
-    pool."""
+    (without it, never), whether a ResNet shortcut sits behind a pool,
+    whether the auxiliary heads are a list and whether a tree's Swin
+    blocks take the fork's names (:func:`port_key`)."""
+    from stc_unet_tpu_torch.models.utils.swin_core import \
+        relative_position_index
     modules = dict(model.named_modules()) if model is not None else {}
     sd: Dict[str, torch.Tensor] = {}
     for collection in ('params', 'batch_stats'):
         for path, value in _leaves(variables.get(collection, {})):
-            key, tag = translate_path(path, collection)
+            key, tag = port_key(path, collection, modules)
             v = _float32(value)
             if tag == 'kernel' and v.ndim == 4:
                 tag = _bare_4d_tag(key, modules)
-            elif tag == 'conv_w':
-                tag = _brick_conv_tag(key, modules)
-            key = _behind_pool(key, modules)
             v = _transform(v, tag)
+            if merged(key, modules):
+                v = v[..., merge_order(v.shape[-1])]
             sd[key] = torch.from_numpy(np.ascontiguousarray(v))
             if key.endswith('.running_mean'):
                 sd[key[:-len('running_mean')] + 'num_batches_tracked'] = \
                     torch.tensor(0, dtype=torch.long)
+            elif key.endswith(_BIAS_TABLE):
+                # (2w - 1)² rows for a w×w window
+                ws = (int(round(np.sqrt(v.shape[0]))) + 1) // 2
+                sd[key[:-len('bias_table')] + 'index'] = torch.from_numpy(
+                    relative_position_index((ws, ws))).long()
     return sd

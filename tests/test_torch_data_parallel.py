@@ -199,6 +199,62 @@ def test_two_rank_steps_match_one_process(dp_train):
     _hold(d['ranks'][0], d['one'], p0)
 
 
+@pytest.fixture(scope='module')
+def dp_aux(tmp_path_factory):
+    """One Adam step of the tiny flagship with an auxiliary FCNHead (on
+    the third level, weighted 0.4) on a global B=4 batch whose second
+    half, rank 1's rows, has three quarters of its pixels ignored: on 2
+    ranks and in one process, from the same weights."""
+    base = tmp_path_factory.mktemp('dp_aux')
+    mcfg = _flagship_cfg(tiny=True)
+    mcfg['decode_head']['dropout_ratio'] = 0.0
+    mcfg['auxiliary_head'] = dict(
+        type='FCNHead', in_channels=16, in_index=2, channels=8, num_convs=1,
+        concat_input=False, dropout_ratio=0.0, num_classes=2,
+        norm_cfg=dict(type='BN', requires_grad=True),
+        loss_decode=dict(type='CrossEntropyLoss', use_sigmoid=False,
+                         loss_weight=0.4))
+    state = {k: v.numpy() for k, v in jax_to_torch_state(
+        jax_variables(jax_build(mcfg))).items()}
+    img, gt = _batch(BATCH)
+    rng = np.random.RandomState(5)
+    gt[BATCH // 2:][rng.rand(BATCH // 2, 32, 32) < 0.75] = 255
+    cfg_path = str(base / 'model.py')
+    Config(dict(model=mcfg)).dump(cfg_path)
+    ranks = run_ranks(str(base / 'ranks'), 'train_steps', world=WORLD,
+                      cfg_path=cfg_path, state=state, img=img, gt=gt,
+                      optimizer=OPTIMIZER, lr_config=LR_CONFIG,
+                      max_iters=10, steps=1)
+    tm = _port(mcfg, state)
+    step = make_train_step(tm, build_optimizer(tm, OPTIMIZER),
+                           build_lr_schedule(LR_CONFIG, LR, 10))
+    one = {k: v.item() for k, v in step(img, gt).items()}
+    return dict(ranks=ranks, one=one, labelled=(gt != 255).sum())
+
+
+def test_two_rank_step_averages_every_heads_accuracy(dp_aux):
+    """The ranks' log vars, auxiliary head's included, are the global
+    batch's: the losses to rtol 1e-5 and each ``acc_seg`` within one of
+    the global batch's labelled pixels (a pixel on a class boundary may
+    flip with f32 sums taken in another order). Rank 1 holds a quarter
+    as many labelled pixels as rank 0, so the plain mean of the ranks'
+    accuracies would miss by several pixels."""
+    d = dp_aux
+    pixel = 100.0 / d['labelled']
+    for run in (d['ranks'][0], d['ranks'][0]['remat']):
+        logs = run['logs'][0]
+        assert sorted(logs) == sorted(d['one']) == [
+            'aux.acc_seg', 'aux.loss_ce', 'decode.acc_seg',
+            'decode.loss_bce', 'decode.loss_dice', 'loss']
+        for k, want in d['one'].items():
+            if k.endswith('acc_seg'):
+                assert abs(logs[k] - want) <= pixel, (k, logs[k], want)
+            else:
+                np.testing.assert_allclose(logs[k], want, rtol=1e-5,
+                                           err_msg=k)
+    assert d['ranks'][0]['logs'] == d['ranks'][1]['logs']
+
+
 def test_ranks_hold_bit_equal_state(dp_train):
     """The ranks took different rows and still hold the same parameters,
     buffers (BN stats and counts) and log vars, bit for bit."""

@@ -217,8 +217,20 @@ def test_stochastic_depth_per_sample_and_reused_by_the_decoder():
 
 
 def test_pad_to_window_is_refused():
-    with pytest.raises(NotImplementedError, match='item 20'):
-        tsc.SwinTransformerBlock(16, (5, 5), 4, pad_to_window=True)
+    """``pad_to_window=True`` (the Swin backbone's branch, refused until
+    the backbone was ported) keeps the window and the shift where
+    SwinUNet's branch shrinks them, and its mask covers the padded
+    canvas (a 5x5 map in one 8x8 window); its parity with JAX is in
+    ``tests/test_torch_swin_upernet.py``."""
+    block = tsc.SwinTransformerBlock(16, (5, 5), 4, window_size=8,
+                                     shift_size=4, pad_to_window=True)
+    assert (block.window_size, block.shift_size) == (8, 4)
+    assert tuple(block.attn_mask.shape) == (1, 64, 64)
+    out = block.eval()(torch.randn(2, 25, 16))
+    assert out.shape == (2, 25, 16)
+    shrunk = tsc.SwinTransformerBlock(16, (5, 5), 4, window_size=8,
+                                      shift_size=4)
+    assert (shrunk.window_size, shrunk.shift_size) == (5, 0)
 
 
 def test_config_builds_at_full_width():
