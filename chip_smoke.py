@@ -182,7 +182,13 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
     optimizer and schedule, its log vars' auxiliary losses counted);
     then the stock PSPNet's trained protocol
     (``stc_unet_tpu_torch.tools.parity_pspnet``: 12 epochs at 256², B=8,
-    bf16) to mDice 0.9 beside the JAX package's (``pspnet_trained``).
+    bf16) to mDice 0.9 beside the JAX package's (``pspnet_trained``);
+19. drives, in the same ``zoo_*`` phases, the stock configs with a neck
+    (``ZOO``, 150 classes): the semantic FPN-R50 (FPN at 256, FPNHead at
+    128), FastFCN-R50 JPU-PSP (the JPU at 512, PSPHead on its fused map,
+    an auxiliary FCNHead) and UPerNet ViT-B/16-MLN (a MultiLevelNeck at
+    768, UPerHead at 512, an auxiliary FCNHead), none of which runs a
+    kernel of the port.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --grad-readings 3   # GRAD_FLOORS' readings
@@ -209,6 +215,7 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12          # H100 SXM bf16 tensor cores, dense
@@ -415,13 +422,22 @@ MULTIRES_RESPATH = (4, 3, 2, 1)
 # The stock zoo (ROADMAP item 20) at its published widths and classes:
 # config -> (train check focus, the schedule file of its optimizer and lr
 # policy, None for the config's own). The stock PSPNet's configs train with
-# the 40k/80k schedules' SGD (momentum 0.9, wd 5e-4, poly 0.9).
+# the 40k/80k schedules' SGD (momentum 0.9, wd 5e-4, poly 0.9); the
+# semantic FPN and FastFCN with their own 160k and 80k ones (the same SGD),
+# the ViT UPerNet with its AdamW (lr 6e-5, no decay on the position
+# embedding, the cls token and the norms) and warmup-poly.
 ZOO_SWIN = ('configs/swin/upernet_swin_tiny_patch4_window7_512x512_160k_'
             'ade20k_pretrain_224x224_1K.py')
 ZOO_PSPNET = 'configs/_base_/models/pspnet_r50-d8.py'
+ZOO_FPN = 'configs/sem_fpn/fpn_r50_512x512_160k_ade20k.py'
+ZOO_FASTFCN = 'configs/fastfcn/fastfcn_r50-d32_jpu_psp_512x512_80k_ade20k.py'
+ZOO_VIT = 'configs/vit/upernet_vit-b16_mln_512x512_160k_ade20k.py'
 ZOO = {ZOO_SWIN: (('swin', 'backbone.stages'), None),
        ZOO_PSPNET: (('psp', 'decode_head.psp_modules'),
-                    'configs/_base_/schedules/schedule_80k.py')}
+                    'configs/_base_/schedules/schedule_80k.py'),
+       ZOO_FPN: (('fpn', 'neck.'), None),
+       ZOO_FASTFCN: (('jpu', 'neck.'), None),
+       ZOO_VIT: (('vit', 'backbone.layers'), None)}
 PSPNET_TRAINED = dict(size=256, epochs=12, batch=8, min_mdice=0.9)
 
 
@@ -495,7 +511,11 @@ def kernel_functions():
 
 
 def emit(phase, **fields):
-    print(json.dumps(dict(phase=phase, **fields)), flush=True)
+    """One JSON line of ``phase``, with ``t``, the script's seconds so
+    far."""
+    print(json.dumps(dict(phase=phase, **fields,
+                          t=round(time.perf_counter() - START, 1))),
+          flush=True)
 
 
 def reset_counts(kern):
@@ -2317,6 +2337,7 @@ def resume_ckpt_check(torch):
     the CPU, its BN stats. Adam's state must be on the card before the
     first step, and ``step`` at the checkpoint's count."""
     import numpy as np
+    from stc_unet_tpu_torch.apis import init_segmentor
     from stc_unet_tpu_torch.core import build_optimizer
     from stc_unet_tpu_torch.engine import (EpochBasedRunner,
                                            load_checkpoint_file)
@@ -2375,7 +2396,8 @@ def resume_ckpt_check(torch):
             if not math.isfinite(a[k]) or abs(a[k] - b[k]) > limit:
                 faults.append(f'{k}: card {a[k]} cpu {b[k]}')
     rel, whole = grad_errors(grads['cuda'], grads['cpu'])
-    nudged = [grad_errors(nudged_grads(torch, cfg, state0, img, gt, s),
+    spare = init_segmentor(cfg, device='cpu')
+    nudged = [grad_errors(nudged_grads(torch, spare, state0, img, gt, s),
                           grads['cpu']) for s in NUDGE_SEEDS]
     yard_whole = max(w for _, w in nudged)
     yard = {k: max(GRAD_FLOOR, *(r[k] for r, _ in nudged)) for k in rel}
@@ -3385,21 +3407,22 @@ def first_grads(torch, model, img, gt):
     return {k: p.grad.float().cpu() for k, p in model.named_parameters()}
 
 
-def nudged_grads(torch, cfg, state, img, gt, seed, prepare=None,
+def nudged_grads(torch, model, state, img, gt, seed, prepare=None,
                  stats=False):
     """The first step's gradients of the port on the CPU after moving the
     image and every parameter by one part in 2^23 (one f32 ulp or less),
     up or down at random: how far f32 rounding alone moves the gradient
-    here. Taken on the CPU, so that nothing the card does widens it. With
+    here. Taken on the CPU, so that nothing the card does widens it, on
+    ``model``, a CPU model of the config that takes the nudged ``state``
+    (its gradients cleared; one model serves every nudge). With
     ``stats``, also the BN running stats after that step."""
-    from stc_unet_tpu_torch.apis import init_segmentor
     g = torch.Generator().manual_seed(seed)
 
     def nudge(t):
         up = torch.rand(t.shape, generator=g) < 0.5
         return t * torch.where(up, 1 + 2.0 ** -23, 1 - 2.0 ** -23)
 
-    model = init_segmentor(cfg, device='cpu')
+    model.zero_grad(set_to_none=True)
     params = dict(model.named_parameters())
     model.load_state_dict({k: nudge(v) if k in params else v
                            for k, v in state.items()})
@@ -3418,9 +3441,8 @@ def check_pair(torch, cfg, init_segmentor, size, prepare=None, seed=0):
     card = init_segmentor(cfg)
     if seed:
         card.init_weights(seed)
-    cpu = init_segmentor(cfg, device='cpu')
+    cpu = copy.deepcopy(card).cpu()
     state = {k: v.cpu().clone() for k, v in card.state_dict().items()}
-    cpu.load_state_dict(state)
     if prepare is not None:
         prepare(card)
         prepare(cpu)
@@ -3562,8 +3584,9 @@ def phase_train_check(torch, cfg, init_segmentor, size, phase='train_check',
     faults = []
     pixel = 100.0 / int((gt != 255).sum())
     nudged, syard = [], None
+    spare = copy.deepcopy(cpu)
     for s in NUDGE_SEEDS:
-        grads, stats = nudged_grads(torch, cfg, cpu_state, img, gt, s,
+        grads, stats = nudged_grads(torch, spare, cpu_state, img, gt, s,
                                     prepare, stats=True)
         nudged.append(grad_errors(grads, runs['cpu']['grads']))
         if stats_yard:
@@ -3895,7 +3918,7 @@ def grad_readings(torch, init_segmentor, Config, seeds):
             ref = first_grads(torch, cpu, img, gt)
             rel, whole = grad_errors(
                 first_grads(torch, card, img.cuda(), gt.cuda()), ref)
-            nudged = [grad_errors(nudged_grads(torch, cfg, state, img, gt, s,
+            nudged = [grad_errors(nudged_grads(torch, cpu, state, img, gt, s,
                                                monolithic_ready), ref)
                       for s in NUDGE_SEEDS]
             yard = {k: max(GRAD_FLOOR, *(r[k] for r, _ in nudged))
@@ -3961,10 +3984,7 @@ def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi,
         model = init_segmentor(load(Config, config))
 
         def cpu_model():
-            m = init_segmentor(load(Config, config), device='cpu')
-            m.load_state_dict({k: v.cpu() for k, v in
-                               model.state_dict().items()})
-            return m
+            return copy.deepcopy(model).cpu().eval()
 
         served = phase_slice(torch, kern, model, cpu_model, config,
                              ('whole',), expected, phase=f'{prefix}_slice',
@@ -4174,7 +4194,9 @@ def main(argv=None):
          count=torch.cuda.device_count(), nvidia_smi=smi,
          default_cudnn_allow_tf32=default_tf32[0],
          default_matmul_allow_tf32=default_tf32[1],
-         cudnn_allow_tf32=False, matmul_allow_tf32=False)
+         cudnn_allow_tf32=False, matmul_allow_tf32=False,
+         cpu_threads=torch.get_num_threads(),
+         cpus_usable=len(os.sched_getaffinity(0)), cpus=os.cpu_count())
     if args.grad_readings:
         grad_readings(torch, init_segmentor, Config, args.grad_readings)
         return 0
@@ -4211,20 +4233,15 @@ def main(argv=None):
 
     model = init_segmentor(stc_cfg())
 
-    def cpu_model(make_cfg, card):
-        def build():
-            m = init_segmentor(make_cfg(), device='cpu')
-            m.load_state_dict({k: v.cpu() for k, v in
-                               card.state_dict().items()})
-            return m
-        return build
+    def cpu_model(card):
+        return lambda: copy.deepcopy(card).cpu().eval()
 
-    launches = phase_slice(torch, kern, model, cpu_model(stc_cfg, model),
+    launches = phase_slice(torch, kern, model, cpu_model(model),
                            STC_CONFIG, ('slide', 'whole'), STC_FORWARD)
-    phase_tf32_check(torch, model, cpu_model(stc_cfg, model),
+    phase_tf32_check(torch, model, cpu_model(model),
                      ('torch default',) + default_tf32)
     evaluated = phase_test_path(torch, kern, model,
-                                cpu_model(stc_cfg, model),
+                                cpu_model(model),
                                 ('torch default',) + default_tf32)
     for name in KERNELS:
         launches[name] += evaluated[name]
@@ -4276,7 +4293,7 @@ def main(argv=None):
     flash.load_state_dict(model.state_dict(), strict=True)
     flash_config = f'{STC_CONFIG} with backbone.flash_attention=True'
     served = phase_slice(torch, kern, flash,
-                         cpu_model(lambda: stc_cfg(True), flash),
+                         cpu_model(flash),
                          flash_config, ('slide', 'whole'), FLASH_FORWARD,
                          phase='flash_slice', card_model=model)
     del model
@@ -4301,7 +4318,7 @@ def main(argv=None):
     mv_path = os.path.join(REPO, MAXVIT_CONFIG)
     model = init_segmentor(Config.fromfile(mv_path))
     served = phase_slice(torch, kern, model,
-                         cpu_model(lambda: Config.fromfile(mv_path), model),
+                         cpu_model(model),
                          MAXVIT_CONFIG, ('whole',), MAXVIT_FORWARD,
                          phase='maxvit_slice')
     phase_maxvit_timing(torch, model, ('torch default',) + default_tf32)
@@ -4350,8 +4367,9 @@ def main(argv=None):
     for name in KERNELS:
         launches[name] += ran[name]
     phase_fork_kernel_timing(torch, cf, err)
-    # 18. the stock zoo: Swin-T UPerNet and PSPNet-R50-D8 with their
-    # auxiliary FCNHeads, no kernel; then the stock PSPNet's trained
+    # 18. and 19. the stock zoo: Swin-T UPerNet and PSPNet-R50-D8 with
+    # their auxiliary FCNHeads, the semantic FPN, FastFCN and the ViT
+    # UPerNet with their necks, no kernel; then the stock PSPNet's trained
     # protocol
     ran = phase_monolithic(
         torch, kern, init_segmentor, Config,

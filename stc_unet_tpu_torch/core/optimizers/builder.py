@@ -16,7 +16,11 @@ kernels, so the port builds the matching ``torch.optim`` optimizer:
   wins, then ``norm_decay_mult`` for norm layers and ``bias_decay_mult``
   for other biases). A group's ``lr`` is ``lr · lr_mult`` and its
   ``weight_decay`` is ``weight_decay · decay_mult``. Keys match the port's
-  parameter names, the reference fork's (``backbone.inc.conv.conv.0``).
+  parameter names, the reference fork's (``backbone.inc.conv.conv.0``),
+  but where a module carries a ``paramwise_name``, the JAX module's name
+  for it: the ViT's LayerNorms are the fork's ``ln1``/``ln2`` and JAX's
+  ``norm1``/``norm2``/``norm1_final``, so a ``'norm'`` key takes their
+  decay off, as in JAX (mmseg's fork decays them).
 
 ``engine.make_train_step`` sets each group's lr to ``schedule(k) ·
 lr_mult`` before each step.
@@ -78,6 +82,11 @@ def _param_groups(model: nn.Module, paramwise_cfg: dict) -> List[Dict]:
             if not p.requires_grad:
                 continue
             name = f'{mname}.{pname}' if mname else pname
+            alias = getattr(module, 'paramwise_name', None)
+            if alias is not None:
+                # the JAX module's name where the fork's differs (the ViT's
+                # LayerNorms), which JAX's substring match sees
+                name = '.'.join(mname.split('.')[:-1] + [alias, pname])
             lr_mult, decay_mult = 1.0, 1.0
             key = next((k for k in sorted_keys if k in name), None)
             if key is not None:

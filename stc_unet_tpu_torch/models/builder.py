@@ -1,8 +1,8 @@
 """Model registries and build functions
 (≙ ``stc_unet_tpu/models/builder.py``).
 
-Registered classes are ``nn.Module``s, or plain loss callables in
-``LOSSES``; ``build_*`` instantiates from an mmcv-style cfg dict keyed on
+Registered classes are ``nn.Module``s (backbones, necks, heads,
+segmentors), or plain loss callables in ``LOSSES``; ``build_*`` instantiates from an mmcv-style cfg dict keyed on
 ``type``.
 """
 from __future__ import annotations
@@ -10,6 +10,7 @@ from __future__ import annotations
 from stc_unet_tpu_torch.utils import Registry
 
 BACKBONES = Registry('backbone')
+NECKS = Registry('neck')
 HEADS = Registry('head')
 LOSSES = Registry('loss')
 SEGMENTORS = Registry('segmentor')
@@ -17,6 +18,10 @@ SEGMENTORS = Registry('segmentor')
 
 def build_backbone(cfg):
     return BACKBONES.build(cfg)
+
+
+def build_neck(cfg, default_args=None):
+    return NECKS.build(cfg, default_args=default_args)
 
 
 def build_head(cfg, default_args=None):

@@ -4,6 +4,7 @@ from .dc_unet_head import DC_Unet
 from .decode_head import BaseDecodeHead, resolve_out_channels
 from .extra_unet_heads import LinkNet, MultiResUnet, ResUNet
 from .fcn_head import FCNHead
+from .fpn_head import FPNHead
 from .maxvit_decoder import MaxViTDecoder
 from .psp_head import PSPHead
 from .sep_aspp_head import DepthwiseSeparableASPPHead
@@ -15,7 +16,7 @@ from .uper_head import UPerHead
 
 __all__ = ['ASPPHead', 'BaseDecodeHead', 'CADRB', 'CARUnet', 'CoordAtt',
            'DC_Unet', 'DenseASPPBlock', 'DepthwiseSeparableASPPHead',
-           'FCNHead', 'LinkNet', 'MaxViTDecoder', 'MultiResUnet', 'PSPHead',
-           'ResUNet', 'SKAttention', 'SwinUNet', 'TransUNet',
+           'FCNHead', 'FPNHead', 'LinkNet', 'MaxViTDecoder', 'MultiResUnet',
+           'PSPHead', 'ResUNet', 'SKAttention', 'SwinUNet', 'TransUNet',
            'TransUNetModule', 'UPerHead', 'UnetHead', 'UnetPlusPlus',
            'resolve_out_channels']

@@ -20,10 +20,10 @@ from ..builder import HEADS
 from .decode_head import BaseDecodeHead
 
 
-def resize_nchw(x, size, align_corners):
-    """Bilinear resize of an NCHW x to ``size`` through the NHWC
-    ``ops.resize``."""
-    return resize(x.permute(0, 2, 3, 1), size=tuple(size), mode='bilinear',
+def resize_nchw(x, size, align_corners, mode='bilinear'):
+    """Resize of an NCHW x to ``size`` through the NHWC ``ops.resize``
+    (bilinear by default; ``align_corners`` None for nearest)."""
+    return resize(x.permute(0, 2, 3, 1), size=tuple(size), mode=mode,
                   align_corners=align_corners,
                   warning=False).permute(0, 3, 1, 2)
 

@@ -19,13 +19,19 @@ a multiple of the ranks), each rank runs its chunk, and one all-reduce
 of a zero-filled buffer gives every rank all the logits, stitched in the
 unsharded order. Every rank must make the call.
 
+The graph is the JAX one: backbone, then the ``neck`` where there is
+one, then every head on what the neck gives (``_features``, the one path
+of inference, ``extract_feat`` and the losses). A neck sizes its convs
+from the backbone's ``out_channels``, and the heads theirs from the
+neck's (``feature_channels``).
+
 Training is ``forward_train``/``compute_losses`` in the module's current
 mode: call ``.train()`` first, as ``EncoderDecoder.__init__`` and
 ``init_segmentor`` leave the model in eval. ``engine.make_train_step``
 does that, and takes the optimizer step. The auxiliary heads (one, or a
-list: mmseg's ``nn.ModuleList``) run there only, on the backbone's
-features, never at inference; their losses join the decode head's under
-``aux`` (one head) or ``aux_{i}``.
+list: mmseg's ``nn.ModuleList``) run there only, on the neck's (else the
+backbone's) features, never at inference; their losses join the decode
+head's under ``aux`` (one head) or ``aux_{i}``.
 """
 from __future__ import annotations
 
@@ -52,16 +58,13 @@ def _pretrained(init_cfg) -> bool:
 
 @SEGMENTORS.register_module()
 class EncoderDecoder(BaseSegmentor):
-    """backbone → decode_head (and the auxiliary heads, in training)."""
+    """backbone → (neck) → decode_head (and the auxiliary heads, in
+    training)."""
 
     def __init__(self, backbone, decode_head, neck=None, auxiliary_head=None,
                  train_cfg=None, test_cfg=None, pretrained=None,
                  init_cfg=None):
         super().__init__(init_cfg)
-        if neck is not None:
-            raise NotImplementedError(
-                'necks are not ported yet (ROADMAP.md §1, item 20: the '
-                'necks)')
         if pretrained is not None or backbone.get('pretrained') or \
                 _pretrained(backbone.get('init_cfg')) or \
                 _pretrained(init_cfg):
@@ -71,6 +74,10 @@ class EncoderDecoder(BaseSegmentor):
                 'init_cfg to train from random weights')
         self.backbone = builder.build_backbone(backbone)
         feature_channels = dict(feature_channels=self.backbone.out_channels)
+        self.neck = None
+        if neck is not None:
+            self.neck = builder.build_neck(neck, default_args=feature_channels)
+            feature_channels = dict(feature_channels=self.neck.out_channels)
         self.decode_head = builder.build_head(
             decode_head, default_args=feature_channels)
         if isinstance(auxiliary_head, (list, tuple)):
@@ -155,8 +162,14 @@ class EncoderDecoder(BaseSegmentor):
             return self._sharded_logits(img)
         return self._net_logits(img)
 
+    def _features(self, x, generator=None):
+        """The backbone's NCHW features of the NCHW x, through the neck
+        where there is one: what every head reads."""
+        feats = self.backbone(x, generator)
+        return feats if self.neck is None else self.neck(feats)
+
     def _net_logits(self, img):
-        out = self.decode_head(self.backbone(img.permute(0, 3, 1, 2)))
+        out = self.decode_head(self._features(img.permute(0, 3, 1, 2)))
         return resize(out.permute(0, 2, 3, 1), size=img.shape[1:3],
                       mode='bilinear', align_corners=self.align_corners,
                       warning=False)
@@ -182,9 +195,10 @@ class EncoderDecoder(BaseSegmentor):
     # -- feature extraction / encode-decode ----------------------------------
     @torch.inference_mode()
     def extract_feat(self, img):
-        """Backbone features, NHWC."""
+        """The features the heads read, NHWC: the backbone's, through the
+        neck where there is one (mmseg's ``extract_feat``)."""
         x = self._as_input(img).permute(0, 3, 1, 2)
-        return [f.permute(0, 2, 3, 1) for f in self.backbone(x)]
+        return [f.permute(0, 2, 3, 1) for f in self._features(x)]
 
     @torch.inference_mode()
     def encode_decode(self, img, img_metas=None):
@@ -201,7 +215,7 @@ class EncoderDecoder(BaseSegmentor):
         gt = torch.as_tensor(gt_semantic_seg).to(self.device)
         if gt.ndim == 4:
             gt = gt[..., 0] if gt.shape[-1] == 1 else gt[:, 0]
-        feats = self.backbone(img.permute(0, 3, 1, 2), generator)
+        feats = self._features(img.permute(0, 3, 1, 2), generator)
         losses = {}
         for prefix, head in self.loss_heads():
             logits = head(feats, generator)

@@ -27,8 +27,9 @@ neither jax nor the JAX package: the caller hands in the
   ``running_mean``/``running_var`` (plus a zero ``num_batches_tracked``,
   so the result loads with ``strict=True``);
 - the packed ``in_proj_weight``/``in_proj_bias`` of the MHA, the
-  ``relative_position_bias_table``, ViT's ``cls_token`` and
-  ``embedding`` and a PReLU's ``weight`` kept verbatim;
+  ``relative_position_bias_table``, the ViTs' ``cls_token``,
+  ``embedding`` and ``pos_embed`` and a PReLU's ``weight`` kept
+  verbatim;
 - flax names that stand for a sequence index (``stem_0``, ``stages_1``,
   ``blocks_0``, ``layers_0``, ``layers_up_1``, ``layer_blocks_2``) become
   that index (``stem.0``, ``stages.1``, ``blocks.0``, ``layers.0``,
@@ -63,7 +64,23 @@ permuted from the JAX concatenation (x00, x10, x01, x11, channel-minor)
 to the fork's ``nn.Unfold`` order (channel-major; :func:`merge_order`).
 The auxiliary heads (flax ``auxiliary_head_{i}``) are
 ``auxiliary_head`` for one head and ``auxiliary_head.{i}`` for a list,
-as the model given holds them (one head without a model).
+as the model given holds them (one head without a model). The necks,
+``FPNHead`` and the ViT backbone take mmseg's keys where the model has
+them: JPU's ``conv_{i}`` and ``dilation_{i}`` are ``conv_layers.{i}.0``
+and ``dilation_layers.{i}.0``, FPN's ``extra_convs_{i}`` is
+``fpn_convs.{n + i}`` (n the levels it uses), ``FPNHead``'s
+``scale_heads_{i}_{k}`` is ``scale_heads.{i}.{2k}`` on a level whose
+``nn.Sequential`` interleaves upsamples (``.{k}`` on the first),
+MLANeck's ``norm_{i}``, ``mla_convs1_{i}`` and ``mla_convs2_{i}`` are
+``norm.{i}``, ``mla.channel_proj.{i}`` and ``mla.feat_extract.{i}``,
+Feature2Pyramid's ``up4_deconv1_{i}``, ``up4_bn_{i}``,
+``up4_deconv2_{i}`` and ``up2_deconv_{i}`` (bare transposed-conv
+kernels: flipped) are ``upsample_4x.{0,1,3}`` and ``upsample_2x.0``;
+the ViT's ``patch_embed`` is ``patch_embed.projection``, a layer's
+``norm1``/``norm2`` are ``ln1``/``ln2``, its ``attn.qkv`` (transposed) is
+``attn.attn.in_proj_weight`` and ``in_proj_bias``, ``attn.proj`` is
+``attn.attn.out_proj``, ``fc1``/``fc2`` are ``ffn.layers.0.0`` and
+``ffn.layers.1``, and ``norm1_final`` is ``ln1``.
 """
 from __future__ import annotations
 
@@ -109,14 +126,34 @@ _RULES = (
                 r'\b'),
      lambda m: f'{m.group(1)}.{m.group(2)}'),
 )
-# the fork's names in the Swin backbone, taken where the model has the
-# renamed module (SwinUNet has none of them: it keeps the flax names)
-_SWIN_FORK = (
-    (re.compile(r'\bpatch_embed\.proj$'), 'patch_embed.projection'),
-    (re.compile(r'\b(blocks\.\d+)\.attn\b'), r'\1.attn.w_msa'),
-    (re.compile(r'\b(blocks\.\d+)\.mlp\.fc1$'), r'\1.ffn.layers.0.0'),
-    (re.compile(r'\b(blocks\.\d+)\.mlp\.fc2$'), r'\1.ffn.layers.1'),
+# the fork's (mmseg's) names in the Swin backbone, the necks and the ViT
+# backbone, taken where the model has the renamed module (SwinUNet has
+# none of them: it keeps the flax names): (pattern, replacement, prefix of
+# the parameter name)
+_FORK_NAMES = (
+    (re.compile(r'\bpatch_embed\.proj$'), 'patch_embed.projection', ''),
+    (re.compile(r'\b(blocks\.\d+)\.attn\b'), r'\1.attn.w_msa', ''),
+    (re.compile(r'\b(blocks\.\d+)\.mlp\.fc1$'), r'\1.ffn.layers.0.0', ''),
+    (re.compile(r'\b(blocks\.\d+)\.mlp\.fc2$'), r'\1.ffn.layers.1', ''),
+    (re.compile(r'(^|\.)conv_(\d+)\b'), r'\1conv_layers.\2.0', ''),
+    (re.compile(r'(^|\.)dilation_(\d+)\b'), r'\1dilation_layers.\2.0', ''),
+    (re.compile(r'(^|\.)norm_(\d+)$'), r'\1norm.\2', ''),
+    (re.compile(r'(^|\.)mla_convs1_(\d+)\b'), r'\1mla.channel_proj.\2', ''),
+    (re.compile(r'(^|\.)mla_convs2_(\d+)\b'), r'\1mla.feat_extract.\2', ''),
+    (re.compile(r'(^|\.)up4_deconv1_\d+$'), r'\1upsample_4x.0', ''),
+    (re.compile(r'(^|\.)up4_bn_\d+$'), r'\1upsample_4x.1', ''),
+    (re.compile(r'(^|\.)up4_deconv2_\d+$'), r'\1upsample_4x.3', ''),
+    (re.compile(r'(^|\.)up2_deconv_\d+$'), r'\1upsample_2x.0', ''),
+    (re.compile(r'(^|\.)patch_embed$'), r'\1patch_embed.projection', ''),
+    (re.compile(r'\b(layers\.\d+)\.norm([12])$'), r'\1.ln\2', ''),
+    (re.compile(r'\b(layers\.\d+)\.fc1$'), r'\1.ffn.layers.0.0', ''),
+    (re.compile(r'\b(layers\.\d+)\.fc2$'), r'\1.ffn.layers.1', ''),
+    (re.compile(r'\b(layers\.\d+\.attn)\.proj$'), r'\1.attn.out_proj', ''),
+    (re.compile(r'\b(layers\.\d+\.attn)\.qkv$'), r'\1.attn', 'in_proj_'),
+    (re.compile(r'(^|\.)norm1_final$'), r'\1ln1', ''),
 )
+_EXTRA_CONV = re.compile(r'^((?:.*\.)?)extra_convs_(\d+)\b')
+_SCALE_HEAD = re.compile(r'^((?:.*\.)?)scale_heads_(\d+)_(\d+)\b')
 # a ResNet shortcut's conv and BN (flax ``downsample/0``, ``/1``)
 _DOWNSAMPLE = re.compile(r'^(.*\.downsample)\.(\d)\.(\w+)$')
 _BIAS_TABLE = '.attn.w_msa.relative_position_bias_table'
@@ -156,7 +193,8 @@ def translate_path(path: Tuple[str, ...], collection: str = 'params'):
     elif leaf == 'scale':
         module, name = path[:-1], 'weight'
     elif leaf in ('bias', 'weight', 'in_proj_weight', 'in_proj_bias',
-                  'relative_position_bias_table', 'cls_token', 'embedding'):
+                  'relative_position_bias_table', 'cls_token', 'embedding',
+                  'pos_embed'):
         module, name = path[:-1], leaf
     else:
         raise KeyError(f'cannot translate flax path {"/".join(path)}')
@@ -201,13 +239,37 @@ def _behind_pool(key: str, modules: Dict[str, nn.Module]) -> str:
     return f'{m.group(1)}.{int(m.group(2)) + 1}.{m.group(3)}'
 
 
+def _mmseg_index(module: str, modules: Dict[str, nn.Module]) -> str:
+    """``module`` with FPN's ``extra_convs_{i}`` at
+    ``fpn_convs.{n + i}`` and ``FPNHead``'s ``scale_heads_{i}_{k}`` at
+    ``scale_heads.{i}.{k}``, or ``.{2k}`` where that level's
+    ``nn.Sequential`` puts an upsample after each conv."""
+    m = _EXTRA_CONV.match(module)
+    if m is not None:
+        owner = modules.get(m.group(1).rstrip('.'))
+        if owner is not None and hasattr(owner, 'num_levels'):
+            i = owner.num_levels + int(m.group(2))
+            return _EXTRA_CONV.sub(rf'\g<1>fpn_convs.{i}', module)
+    m = _SCALE_HEAD.match(module)
+    if m is not None:
+        level = f'{m.group(1)}scale_heads.{m.group(2)}'
+        second = modules.get(f'{level}.1')
+        k = int(m.group(3))
+        if second is not None and not list(second.parameters()):
+            k *= 2
+        return _SCALE_HEAD.sub(rf'\g<1>scale_heads.{m.group(2)}.{k}',
+                               module)
+    return module
+
+
 def port_key(path: Tuple[str, ...], collection: str = 'params',
              modules: Optional[Dict[str, nn.Module]] = None):
     """One flax leaf path → (the port's key, transform tag) for the model
     of ``modules`` (its ``named_modules()``): :func:`translate_path`, then
     what the model decides (the auxiliary heads' index, the Swin
-    backbone's fork names, a shortcut behind a pool, a transposed conv
-    brick). A bare kernel keeps its ``kernel`` tag: its rank decides
+    backbone's fork names, the necks', ``FPNHead``'s and the ViT's mmseg
+    names, a shortcut behind a pool, a transposed conv brick). A bare
+    kernel keeps its ``kernel`` tag: its rank decides
     (:func:`jax_to_torch_state`)."""
     modules = modules or {}
     key, tag = translate_path(path, collection)
@@ -215,10 +277,11 @@ def port_key(path: Tuple[str, ...], collection: str = 'params',
     if module.startswith('auxiliary_head.') and not isinstance(
             modules.get('auxiliary_head'), nn.ModuleList):
         module = 'auxiliary_head.' + module.split('.', 2)[2]
-    for pattern, repl in _SWIN_FORK:
+    for pattern, repl, prefix in _FORK_NAMES:
         fork = pattern.sub(repl, module)
         if fork != module and fork in modules:
-            module = fork
+            module, name = fork, prefix + name
+    module = _mmseg_index(module, modules)
     key = _behind_pool(f'{module}.{name}' if module else name, modules)
     if tag == 'conv_w':
         tag = _brick_conv_tag(key, modules)

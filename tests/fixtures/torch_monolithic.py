@@ -49,6 +49,7 @@ from stc_unet_tpu_torch.models import build_segmentor
 from stc_unet_tpu_torch.models.bricks import Dropout, Dropout2d
 from stc_unet_tpu_torch.models.utils.swin_core import DropPath
 from stc_unet_tpu_torch.utils import jax_to_torch_state
+from stc_unet_tpu_torch.utils.jax_convert import port_key
 from tests.fixtures.torch_port import random_variables
 
 LOSSES = [dict(type='CrossEntropyLoss', use_sigmoid=False,
@@ -108,6 +109,36 @@ def check_leaves_and_count(jm, tm):
                      if c == 'params')
     assert jax_params == sum(p.numel() for p in tm.parameters())
     return jax_params
+
+
+def check_round_trip(v, module):
+    """Each flax leaf of ``v`` lands on its own key of ``module`` (plus a
+    ``num_batches_tracked`` a BN), the key sets are equal, and the
+    inverse layout of each port tensor (by its ``port_key`` tag, a bare
+    4-D kernel by its module's type) is the leaf, bit for bit."""
+    sd, modules = module.state_dict(), dict(module.named_modules())
+    found = [(c, p, x) for c in ('params', 'batch_stats')
+             for p, x in leaves(v.get(c, {}))]
+    keys = set()
+    for c, path, x in found:
+        key, tag = port_key(path, c, modules)
+        keys.add(key)
+        t = sd[key].numpy()
+        if tag == 'kernel' and t.ndim == 4:
+            tag = 'deconv_w' if isinstance(
+                modules[key.rpartition('.')[0]],
+                torch.nn.ConvTranspose2d) else 'conv_w'
+        if tag == 'deconv_w':
+            t = np.transpose(t, (2, 3, 0, 1))[::-1, ::-1]
+        elif tag == 'conv_w':
+            t = np.transpose(t, (2, 3, 1, 0))
+        elif tag in ('linear_w', 'kernel'):
+            t = t.T
+        np.testing.assert_array_equal(t, np.asarray(x), err_msg=key)
+    bn = {k[:-len('running_mean')] + 'num_batches_tracked' for k in keys
+          if k.endswith('running_mean')}
+    assert len(keys) == len(found)
+    assert sorted(keys | bn) == sorted(sd)
 
 
 def image(n, size, seed=0):

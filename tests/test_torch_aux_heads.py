@@ -182,12 +182,16 @@ def test_fcn_head_checks_match_jax(kw, match):
 
 
 def test_necks_and_pretrained_weights_still_raise():
-    """A neck names the ROADMAP item that ports it; a pretrained path or a
-    ``Pretrained`` init_cfg (the backbone's or the segmentor's) raises
-    rather than train from random weights."""
+    """A neck builds on the backbone's widths (the necks are ported) and
+    raises where its ``in_channels`` are not those widths; a pretrained
+    path or a ``Pretrained`` init_cfg (the backbone's or the segmentor's)
+    raises rather than train from random weights."""
     base = tiny(Config)
-    with pytest.raises(NotImplementedError, match='item 20: the necks'):
+    with pytest.raises(AssertionError, match="backbone's widths"):
         build_segmentor(dict(base, neck=dict(type='FPN')))
+    fpn = build_segmentor(dict(base, neck=dict(
+        type='FPN', in_channels=[32, 64, 128, 256], out_channels=256)))
+    assert fpn.neck.out_channels == [256] * 4
     pretrained = dict(type='Pretrained', checkpoint='r50.pth')
     for cfg in (dict(base, pretrained='open-mmlab://resnet50_v1c'),
                 dict(base, backbone=dict(base['backbone'],
