@@ -182,13 +182,26 @@ poly lr, bf16 compute, B=8 at 512², as ``bench.py`` trains). On the way it
     optimizer and schedule, its log vars' auxiliary losses counted);
     then the stock PSPNet's trained protocol
     (``stc_unet_tpu_torch.tools.parity_pspnet``: 12 epochs at 256², B=8,
-    bf16) to mDice 0.9 beside the JAX package's (``pspnet_trained``);
+    bf16) to mDice 0.9 beside the JAX package's (``pspnet_trained``); the
+    zoo phases run the PSPNet at one ResNetV1c-50 block a stage
+    (``ZOO_ONE_BLOCK``: the trained protocol runs it whole);
 19. drives, in the same ``zoo_*`` phases, the stock configs with a neck
     (``ZOO``, 150 classes): the semantic FPN-R50 (FPN at 256, FPNHead at
     128), FastFCN-R50 JPU-PSP (the JPU at 512, PSPHead on its fused map,
     an auxiliary FCNHead) and UPerNet ViT-B/16-MLN (a MultiLevelNeck at
     768, UPerHead at 512, an auxiliary FCNHead), none of which runs a
-    kernel of the port.
+    kernel of the port; the ViT UPerNet at 4 of its 12 layers
+    (``ZOO_DEPTH``: the Segmenter and DPT run ViT-B/16 at full depth),
+    the FPN and FastFCN at one block a stage (``ZOO_ONE_BLOCK``);
+20. drives, in the same ``zoo_*`` phases, the ViT's heads (``ZOO``, 150
+    classes): SETR-PUP (ViT-L/16, a SETRUPHead of four 3x3 convs and 2x
+    upsamples at 256, three auxiliary SETRUPHeads), SETR-MLA (ViT-L/16
+    without its cls token, MLANeck at 256, SETRMLAHead at 4 x 128, four
+    auxiliary FCNHeads), the Segmenter ViT-B/16 (its last layer through
+    ``final_norm``, a mask transformer of 2 layers at 768) and DPT ViT-B/16
+    (its 14² position grid resized to 32², the cls token read out by a
+    projection, reassembled and fused at 256), none of which runs a kernel
+    of the port.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --grad-readings 3   # GRAD_FLOORS' readings
@@ -432,12 +445,24 @@ ZOO_PSPNET = 'configs/_base_/models/pspnet_r50-d8.py'
 ZOO_FPN = 'configs/sem_fpn/fpn_r50_512x512_160k_ade20k.py'
 ZOO_FASTFCN = 'configs/fastfcn/fastfcn_r50-d32_jpu_psp_512x512_80k_ade20k.py'
 ZOO_VIT = 'configs/vit/upernet_vit-b16_mln_512x512_160k_ade20k.py'
+# The ViT's heads (item 20): SETR-PUP and SETR-MLA on ViT-L/16 (SGD, the
+# heads at 10x the lr), the Segmenter's mask transformer on ViT-B/16 (SGD)
+# and DPT on ViT-B/16 (AdamW, warmup-poly), each its config's own schedule
+ZOO_SETR_PUP = 'configs/setr/setr_pup_512x512_160k_b16_ade20k.py'
+ZOO_SETR_MLA = 'configs/setr/setr_mla_512x512_160k_b8_ade20k.py'
+ZOO_SEGMENTER = ('configs/segmenter/segmenter_vit-b_mask_8x1_512x512_160k_'
+                 'ade20k.py')
+ZOO_DPT = 'configs/dpt/dpt_vit-b16_512x512_160k_ade20k.py'
 ZOO = {ZOO_SWIN: (('swin', 'backbone.stages'), None),
        ZOO_PSPNET: (('psp', 'decode_head.psp_modules'),
                     'configs/_base_/schedules/schedule_80k.py'),
        ZOO_FPN: (('fpn', 'neck.'), None),
        ZOO_FASTFCN: (('jpu', 'neck.'), None),
-       ZOO_VIT: (('vit', 'backbone.layers'), None)}
+       ZOO_VIT: (('vit', 'backbone.layers'), None),
+       ZOO_SETR_PUP: (('setr_up', 'up_convs'), None),
+       ZOO_SETR_MLA: (('setr_mla', 'decode_head.up_convs'), None),
+       ZOO_SEGMENTER: (('mask_transformer', 'decode_head.'), None),
+       ZOO_DPT: (('dpt', 'decode_head.'), None)}
 PSPNET_TRAINED = dict(size=256, epochs=12, batch=8, min_mdice=0.9)
 
 
@@ -472,6 +497,31 @@ def multires_bn_calls(key):
 BN_CALLS = {'MultiResUnet': multires_bn_calls}
 
 
+# The logits' atol of a config whose logits are not held at 1e-5, card vs
+# CPU: the Segmenter's ``mask_norm`` normalises the cosines of its
+# patches and classes over the 150 classes, and a seeded 768-wide model's
+# cosines spread about 0.04 there, so the f32 rounding of the cosines
+# comes out some 25 times larger (3.05e-5 on logits of unit spread at
+# 256², a first card call); JAX's own oracle holds the head at 5e-4
+LOGIT_ATOL = {ZOO_SEGMENTER: 1e-4}
+# The parameters a config's train step cannot move: SETR-MLA's ViT drops
+# its cls token (``with_cls_token=False``, as in mmseg and JAX, which keep
+# the parameter), so the token's gradient is 0, and the config's SGD has
+# no weight decay
+STILL = {ZOO_SETR_MLA: ('backbone.cls_token',)}
+# Depth cuts of zoo configs whose backbone runs at full depth in another
+# config of the script: the Segmenter and DPT run ViT-B/16 at 12 layers,
+# ``pspnet_trained`` the stock PSPNet-R50-D8 (ResNetV1c-50, (3, 4, 6, 3)
+# blocks) whole, and my_config/PSPNet.py its ResNet-50, dilated alike.
+# The ViT UPerNet takes 4 layers through its backbone's fields
+# (config -> fields, ``zoo_run_cfg``); the stock PSPNet, the semantic FPN
+# and FastFCN keep the first block of each ResNet stage, cut from the
+# built model (``zoo_init``), since a ResNet takes its blocks from
+# ``depth`` alone.
+ZOO_DEPTH = {ZOO_VIT: dict(num_layers=4, out_indices=(0, 1, 2, 3))}
+ZOO_ONE_BLOCK = (ZOO_PSPNET, ZOO_FPN, ZOO_FASTFCN)
+
+
 def zoo_cfg(Config, config):
     """``ZOO``'s config ``config`` as the zoo phases build it: its
     pretrained weights stripped (the segmentor's ``pretrained`` path, the
@@ -481,6 +531,29 @@ def zoo_cfg(Config, config):
     cfg.model.backbone.init_cfg = None
     cfg.model.test_cfg = dict(mode='whole')
     return cfg
+
+
+def zoo_run_cfg(Config, config):
+    """``zoo_cfg`` as the zoo phases run it: at the depth of
+    ``ZOO_DEPTH`` where the config has one, and marked ``one_block`` for
+    ``zoo_init`` if it is in ``ZOO_ONE_BLOCK``."""
+    cfg = zoo_cfg(Config, config)
+    cfg.model.backbone.update(ZOO_DEPTH.get(config, {}))
+    cfg.one_block = config in ZOO_ONE_BLOCK
+    return cfg
+
+
+def zoo_init(init_segmentor):
+    """``init_segmentor`` as the zoo phases call it: the model of a
+    config marked ``one_block`` keeps only the first block of each ResNet
+    stage (each ``ResLayer`` is an ``nn.Sequential``)."""
+    def init(cfg, *args, **kwargs):
+        model = init_segmentor(cfg, *args, **kwargs)
+        if cfg.get('one_block'):
+            for name in model.backbone.res_layers:
+                del getattr(model.backbone, name)[1:]
+        return model
+    return init
 
 
 def zoo_optim(Config, config):
@@ -1331,10 +1404,14 @@ def write_split(root, n, size, seed, split='test', check=True):
     label rows too, written by 8 threads. With ``check``, checks
     ``png.decode(png.encode(x, f)) == x`` for each filter, on the first
     image and label, and that the C unfilter gives the plain version's
-    bytes on every file written. Returns the record."""
+    bytes on every file written (``unfilter_agrees``: the first file here,
+    which builds the C unfilter, the rest in 8 forked worker processes,
+    since the plain version is a Python loop over the anti-diagonals).
+    Returns the record."""
     import numpy as np
     from stc_unet_tpu_torch.utils import png
-    from concurrent.futures import ThreadPoolExecutor
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+    from multiprocessing import get_context
     rng = np.random.RandomState(seed)
     yy, xx = np.mgrid[0:size, 0:size]
     cycle = np.arange(size) % 5
@@ -1363,20 +1440,33 @@ def write_split(root, n, size, seed, split='test', check=True):
     if not check:
         return dict(files=len(paths), size=size, write_s=write_s)
     t0 = time.perf_counter()
-    for path in paths:
-        with open(path, 'rb') as f:
-            raw, height, width, color, _ = png.inflate(f.read(), path)
-        bpp = png.CHANNELS[color]
-        args = (raw, height, width * bpp, bpp)
-        if not np.array_equal(png.unfilter(*args),
-                              png.unfilter_reference(*args)):
-            raise AssertionError(f'{path}: the C unfilter differs from the '
-                                 f'plain one')
+    agree = [unfilter_agrees(paths[0])]
+    # forked, as the loaders' workers are: they run numpy and the C
+    # unfilter this process has loaded, never torch
+    with ProcessPoolExecutor(8, mp_context=get_context('fork')) as pool:
+        agree += pool.map(unfilter_agrees, paths[1:])
+    differ = [path for path, same in zip(paths, agree) if not same]
+    if differ:
+        raise AssertionError(f'{differ[:3]}: the C unfilter differs from '
+                             f'the plain one')
     return dict(files=len(paths), size=size, filters='rows cycle 0-4',
                 round_trip='filters 0-4, RGB and gray: equal',
                 unfilter_c_vs_plain=f'{len(paths)} files equal',
                 write_s=write_s,
                 unfilter_check_s=time.perf_counter() - t0)
+
+
+def unfilter_agrees(path):
+    """Whether the C unfilter gives the plain version's bytes on the PNG
+    file ``path`` (``write_split``'s check)."""
+    import numpy as np
+    from stc_unet_tpu_torch.utils import png
+    with open(path, 'rb') as f:
+        raw, height, width, color, _ = png.inflate(f.read(), path)
+    bpp = png.CHANNELS[color]
+    args = (raw, height, width * bpp, bpp)
+    return bool(np.array_equal(png.unfilter(*args),
+                               png.unfilter_reference(*args)))
 
 
 def split_loader(cfg, root, stems=None):
@@ -2397,8 +2487,10 @@ def resume_ckpt_check(torch):
                 faults.append(f'{k}: card {a[k]} cpu {b[k]}')
     rel, whole = grad_errors(grads['cuda'], grads['cpu'])
     spare = init_segmentor(cfg, device='cpu')
-    nudged = [grad_errors(nudged_grads(torch, spare, state0, img, gt, s),
-                          grads['cpu']) for s in NUDGE_SEEDS]
+    norms = ref_norms(grads['cpu'])
+    nudged = [grad_errors(nudged_grads(torch, spare, state0, gt, n),
+                          grads['cpu'], norms)
+              for n in nudges(torch, spare, state0, img)]
     yard_whole = max(w for _, w in nudged)
     yard = {k: max(GRAD_FLOOR, *(r[k] for r, _ in nudged)) for k in rel}
     if whole > 3 * yard_whole:
@@ -3008,8 +3100,8 @@ def phase_slice(torch, kern, model, cpu_model_fn, config, modes, expected,
     check each forward's launches against ``expected``; hold the card's
     logits on a ``check_size``² image against the port on the CPU (f32,
     TF32 off) and, when ``card_model`` is given, against that model's on
-    the card (``compare_logits``, with ``margin_floor``). Returns the
-    launches."""
+    the card (``compare_logits``, with ``margin_floor`` and the config's
+    ``LOGIT_ATOL``). Returns the launches."""
     g = torch.Generator(device='cuda').manual_seed(1)
     imgs = torch.rand((2, 512, 512, 3), generator=g,
                       device='cuda').to(torch.bfloat16)
@@ -3042,23 +3134,26 @@ def phase_slice(torch, kern, model, cpu_model_fn, config, modes, expected,
                             foreground_share=float(
                                 sum(p.mean() for p in preds) / len(preds)))
     # the card against the CPU, f32, TF32 off
+    atol = LOGIT_ATOL.get(config, 1e-5)
     x = torch.rand((1, check_size, check_size, 3),
                    generator=torch.Generator().manual_seed(2))
     on_card = model.encode_decode(x.cuda()).float().cpu()
     checks = dict(cpu_check=compare_logits(
-        torch, on_card, cpu_model_fn().encode_decode(x), margin_floor))
+        torch, on_card, cpu_model_fn().encode_decode(x), margin_floor,
+        atol))
     if card_model is not None:
         # and against another model on the card, from the same weights
         checks['card_check'] = compare_logits(
             torch, on_card, card_model.encode_decode(x.cuda()).float().cpu(),
-            margin_floor)
+            margin_floor, atol)
     emit(phase, ok=True, config=config, served=served, **checks)
     return launches
 
 
-def compare_logits(torch, got, want, margin_floor=0.0):
+def compare_logits(torch, got, want, margin_floor=0.0, atol=1e-5):
     """got against want, (1, H, W, 2) f32 logits of one image in whole
-    mode: rtol/atol 1e-5, the class margin within 1e-3 of its spread (or
+    mode: rtol 1e-5 and ``atol`` (1e-5 but where ``LOGIT_ATOL`` says),
+    the class margin within 1e-3 of its spread (or
     within ``margin_floor`` of the largest logit, if that is more), the
     argmax agreeing on 0.999 of the pixels. Raises, or returns the
     measures (``logit_measures``)."""
@@ -3066,7 +3161,7 @@ def compare_logits(torch, got, want, margin_floor=0.0):
     # The seeded models' logits are small (STC-UNet: |max| ~0.2) and their
     # class margins spread ~1e-2, so the limits are set against those, not
     # against 1.
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
     margin_limit = max(1e-3 * m['margin_std'],
                        margin_floor * m['logits_abs_max'])
     if m['margin_max_abs_err'] > margin_limit:
@@ -3080,8 +3175,8 @@ def compare_logits(torch, got, want, margin_floor=0.0):
              if margin_floor else '')
     return dict(size=got.shape[1], mode='whole', dtype='float32', **m,
                 margin_limit=margin_limit,
-                tolerance='logits rtol 1e-5 atol 1e-5; class margin within '
-                          f'1e-3 of its std{floor}; argmax >= 0.999')
+                tolerance=f'logits rtol 1e-5 atol {atol}; class margin '
+                          f'within 1e-3 of its std{floor}; argmax >= 0.999')
 
 
 def whole_and_p50(torch, model, img):
@@ -3384,17 +3479,23 @@ def train_step_for(torch, model, compute_dtype=None, mesh=None,
                            remat=remat), optimizer
 
 
-def grad_errors(grads, ref):
+def grad_errors(grads, ref, norms=None):
     """Per tensor, |g - ref| / |ref| in 2-norms, over the tensors whose
     norm is at least 1e-4 of the largest; and the same over all tensors
-    as one vector."""
-    norms = {k: r.norm().item() for k, r in ref.items()}
+    as one vector. ``norms`` holds ``ref``'s norms where the caller has
+    them (``ref_norms``)."""
+    norms = norms or ref_norms(ref)
     big = max(norms.values())
     diff = {k: (grads[k] - r).norm().item() for k, r in ref.items()}
     whole = math.sqrt(sum(d * d for d in diff.values()) /
                       sum(n * n for n in norms.values()))
     return {k: diff[k] / norms[k] for k in ref
             if norms[k] >= 1e-4 * big}, whole
+
+
+def ref_norms(ref):
+    """The 2-norm of each tensor of ``ref``."""
+    return {k: r.norm().item() for k, r in ref.items()}
 
 
 def first_grads(torch, model, img, gt):
@@ -3407,38 +3508,67 @@ def first_grads(torch, model, img, gt):
     return {k: p.grad.float().cpu() for k, p in model.named_parameters()}
 
 
-def nudged_grads(torch, model, state, img, gt, seed, prepare=None,
+def nudges(torch, model, state, img):
+    """For each of ``NUDGE_SEEDS``, the inputs of one nudge
+    (``nudged_grads``): each parameter of ``model`` in ``state``, in its
+    order, then ``img``, with every element moved by one part in 2^23 (one
+    f32 ulp or less), up where a draw from the seed's CPU generator is
+    under 0.5, else down; as (the moved parameters by name, the moved
+    image). torch draws from a CPU generator one element at a time, so
+    each seed's generator runs in a thread of its own (torch and numpy
+    leave the interpreter lock while they work); each draws its tensors in
+    the order one nudge does, so the draws are those of drawing them a
+    nudge at a time. The threads move the elements in numpy, whose f32
+    product is torch's: a torch op there starts a team of OpenMP threads
+    in each thread, and with those DC-UNet's train check took up to three
+    times as long."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    params = dict(model.named_parameters())
+    moved = [(k, v) for k, v in state.items() if k in params]
+    moved.append((None, img))
+    up, down = np.float32(1 + 2.0 ** -23), np.float32(1 - 2.0 ** -23)
+
+    def draw(seed):
+        g = torch.Generator().manual_seed(seed)
+        out = {k: torch.from_numpy(np.where(
+            torch.rand(t.shape, generator=g).numpy() < 0.5, up, down) *
+            t.numpy()) for k, t in moved}
+        return out, out.pop(None)
+
+    with ThreadPoolExecutor(len(NUDGE_SEEDS)) as pool:
+        return list(pool.map(draw, NUDGE_SEEDS))
+
+
+def nudged_grads(torch, model, state, gt, nudge, prepare=None,
                  stats=False):
     """The first step's gradients of the port on the CPU after moving the
     image and every parameter by one part in 2^23 (one f32 ulp or less),
-    up or down at random: how far f32 rounding alone moves the gradient
-    here. Taken on the CPU, so that nothing the card does widens it, on
-    ``model``, a CPU model of the config that takes the nudged ``state``
-    (its gradients cleared; one model serves every nudge). With
+    as ``nudge`` (one seed's of ``nudges``: the moved parameters of
+    ``state`` and image) gives them: how far f32 rounding alone moves the
+    gradient here. Taken on the CPU, so that nothing the card does widens
+    it, on ``model``, a CPU model of the config that takes the nudged
+    ``state`` (its gradients cleared; one model serves every nudge). With
     ``stats``, also the BN running stats after that step."""
-    g = torch.Generator().manual_seed(seed)
-
-    def nudge(t):
-        up = torch.rand(t.shape, generator=g) < 0.5
-        return t * torch.where(up, 1 + 2.0 ** -23, 1 - 2.0 ** -23)
-
+    moved, img = nudge
     model.zero_grad(set_to_none=True)
-    params = dict(model.named_parameters())
-    model.load_state_dict({k: nudge(v) if k in params else v
-                           for k, v in state.items()})
+    model.load_state_dict({k: moved.get(k, v) for k, v in state.items()})
     if prepare is not None:
         prepare(model)
-    grads = first_grads(torch, model, nudge(img), gt)
+    grads = first_grads(torch, model, img, gt)
     return (grads, first_step(model)['stats']) if stats else grads
 
 
-def check_pair(torch, cfg, init_segmentor, size, prepare=None, seed=0):
+def check_pair(torch, cfg, init_segmentor, size, prepare=None, seed=0,
+               source=None):
     """The models and batch of a train check: the card's model, with
-    ``init_weights(seed)`` past seed 0 (init_segmentor's), the port on the
-    CPU with its state, ``prepare(model)`` applied to both; the state
-    before ``prepare``; and a B=2 f32 batch of ``size``² images from seed
-    4 + ``seed``, with ignored pixels."""
-    card = init_segmentor(cfg)
+    ``init_weights(seed)`` past seed 0 (init_segmentor's), or a copy of
+    ``source``, a card model of ``cfg`` but for its dropout rates that
+    ``prepare`` sets to 0 (no second build and init); the port on the CPU
+    with its state, ``prepare(model)`` applied to both; the state before
+    ``prepare``; and a B=2 f32 batch of ``size``² images from seed 4 +
+    ``seed``, with ignored pixels."""
+    card = init_segmentor(cfg) if source is None else copy.deepcopy(source)
     if seed:
         card.init_weights(seed)
     cpu = copy.deepcopy(card).cpu()
@@ -3509,7 +3639,8 @@ def step_faults(a, b, yard_whole, yard, pixel, stats_yard=None):
 def phase_train_check(torch, cfg, init_segmentor, size, phase='train_check',
                       focus=('coordatt', '.ca.'), prepare=None,
                       step2_from_cpu=False, grad_floor=GRAD_FLOOR,
-                      remat=None, stats_yard=False, bn_calls=None):
+                      remat=None, stats_yard=False, bn_calls=None,
+                      source=None):
     """Two train steps at full width on the card and on the port on the
     CPU, from the same weights: ``size``² images, B=2, f32, TF32 off (set
     by main), with every dropout rate of ``cfg`` at 0 (set by the caller;
@@ -3525,7 +3656,7 @@ def phase_train_check(torch, cfg, init_segmentor, size, phase='train_check',
     ``bn_calls(key)`` for a BN that runs more than once a forward (torch
     counts each run; MultiResUnet's ``multires_bn_calls``). ``focus`` (a
     name and a key fragment) picks the tensors of the kernels' layers for
-    their own report.
+    their own report. ``source`` is ``check_pair``'s.
 
     The gradient of the seeded full-width model at this input is touchy:
     moving the image and the weights by one f32 ulp moves it by about 1 %
@@ -3556,7 +3687,7 @@ def phase_train_check(torch, cfg, init_segmentor, size, phase='train_check',
     backward ones once as often as the plain step (``remat_launches``);
     one ``remat_train_check`` line."""
     card, cpu, cpu_state, img, gt = check_pair(torch, cfg, init_segmentor,
-                                               size, prepare)
+                                               size, prepare, source=source)
     (card_step, card_opt), (cpu_step, cpu_opt) = (
         train_step_for(torch, card), train_step_for(torch, cpu))
     kern = None if remat is None else remat[0]
@@ -3585,10 +3716,11 @@ def phase_train_check(torch, cfg, init_segmentor, size, phase='train_check',
     pixel = 100.0 / int((gt != 255).sum())
     nudged, syard = [], None
     spare = copy.deepcopy(cpu)
-    for s in NUDGE_SEEDS:
-        grads, stats = nudged_grads(torch, spare, cpu_state, img, gt, s,
-                                    prepare, stats=True)
-        nudged.append(grad_errors(grads, runs['cpu']['grads']))
+    norms = ref_norms(runs['cpu']['grads'])
+    for n in nudges(torch, spare, cpu_state, img):
+        grads, stats = nudged_grads(torch, spare, cpu_state, gt, n, prepare,
+                                    stats=True)
+        nudged.append(grad_errors(grads, runs['cpu']['grads'], norms))
         if stats_yard:
             moved = {k: (v - runs['cpu']['stats'][k]).abs().max().item()
                      for k, v in stats.items()}
@@ -3725,7 +3857,8 @@ def phase_train(torch, kern, model, settings, config, expected,
     setting ``(label, cudnn,
     matmul)``: 2 warm-up steps, each checked to launch the kernels
     ``expected`` times, then 10 steps timed with one CUDA event pair; the
-    loss must be finite and every parameter must move. With ``profile``
+    loss must be finite and every parameter must move but the config's
+    ``STILL``, which must not. With ``profile``
     the first setting's run is profiled by kernel group. Returns the
     launches of all steps."""
     g = torch.Generator(device='cuda').manual_seed(5)
@@ -3772,10 +3905,12 @@ def phase_train(torch, kern, model, settings, config, expected,
         losses = torch.stack(losses).float().cpu()
         if not bool(torch.isfinite(losses).all()):
             raise AssertionError(f'train loss not finite: {losses.tolist()}')
-        still = [k for k, p in params.items() if torch.equal(p, before[k])]
-        if still:
-            raise AssertionError(f'{len(still)} parameters did not move, '
-                                 f'e.g. {still[:3]}')
+        unmoved = [k for k, p in params.items()
+                   if torch.equal(p, before[k])]
+        still = list(STILL.get(config, ()))
+        if unmoved != still:
+            raise AssertionError(f'{len(unmoved)} parameters did not move, '
+                                 f'e.g. {unmoved[:3]}; want {still}')
         del before
         rows.append(dict(tf32=label, cudnn_allow_tf32=cudnn,
                          matmul_allow_tf32=matmul, step_ms=ms,
@@ -3916,11 +4051,12 @@ def grad_readings(torch, init_segmentor, Config, seeds):
             card, cpu, state, img, gt = check_pair(
                 torch, cfg, init_segmentor, 64, monolithic_ready, seed)
             ref = first_grads(torch, cpu, img, gt)
+            norms = ref_norms(ref)
             rel, whole = grad_errors(
-                first_grads(torch, card, img.cuda(), gt.cuda()), ref)
-            nudged = [grad_errors(nudged_grads(torch, cpu, state, img, gt, s,
-                                               monolithic_ready), ref)
-                      for s in NUDGE_SEEDS]
+                first_grads(torch, card, img.cuda(), gt.cuda()), ref, norms)
+            nudged = [grad_errors(nudged_grads(torch, cpu, state, gt, n,
+                                               monolithic_ready), ref, norms)
+                      for n in nudges(torch, cpu, state, img)]
             yard = {k: max(GRAD_FLOOR, *(r[k] for r, _ in nudged))
                     for k in rel}
             emit('grad_readings', config=config, seed=seed, size=64,
@@ -3962,8 +4098,10 @@ def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi,
       1.1e-3 of the spread: the margin is held to 1e-3 of its spread or
       1e-5 of the largest logit, whichever is more;
     - ``monolithic_train_check``: ``phase_train_check`` at 64² on
-      ``monolithic_check_cfg`` and ``monolithic_ready`` models, cuDNN on
-      as in training, each gradient tensor held to at least the config's
+      ``monolithic_check_cfg`` and ``monolithic_ready`` models (copies of
+      the served model, which differs from them only in dropout rates;
+      SwinUNet's, at ``img_size`` 64, built anew), cuDNN on as in
+      training, each gradient tensor held to at least the config's
       ``GRAD_FLOORS`` where it has one. The card's second step starts
       from the CPU's state after the first (``step2_from_cpu``);
     - ``monolithic_timing``: at the TF32 setting ``tf32``, whole B=8 and
@@ -4006,7 +4144,8 @@ def phase_monolithic(torch, kern, init_segmentor, Config, tf32, smi,
                           remat=(kern, config, with_cp_cfg, modes)
                           if modes else None,
                           stats_yard=config in stats_yard,
-                          bn_calls=(bn_calls or {}).get(config))
+                          bn_calls=(bn_calls or {}).get(config),
+                          source=None if swin else model)
         set_tf32(torch, cudnn, matmul)
         g = torch.Generator(device='cuda').manual_seed(3)
         img = torch.rand((8, 512, 512, 3), generator=g,
@@ -4367,15 +4506,15 @@ def main(argv=None):
     for name in KERNELS:
         launches[name] += ran[name]
     phase_fork_kernel_timing(torch, cf, err)
-    # 18. and 19. the stock zoo: Swin-T UPerNet and PSPNet-R50-D8 with
+    # 18. to 20. the stock zoo: Swin-T UPerNet and PSPNet-R50-D8 with
     # their auxiliary FCNHeads, the semantic FPN, FastFCN and the ViT
-    # UPerNet with their necks, no kernel; then the stock PSPNet's trained
-    # protocol
+    # UPerNet with their necks, SETR-PUP, SETR-MLA, the Segmenter and DPT,
+    # no kernel; then the stock PSPNet's trained protocol
     ran = phase_monolithic(
-        torch, kern, init_segmentor, Config,
+        torch, kern, zoo_init(init_segmentor), Config,
         ('torch default',) + default_tf32, smi,
         {config: focus for config, (focus, _) in ZOO.items()}, 'zoo',
-        zoo_cfg, stats_yard=ZOO,
+        zoo_run_cfg, stats_yard=ZOO,
         optims={config: zoo_optim(Config, config) for config in ZOO})
     for name in KERNELS:
         launches[name] += ran[name]

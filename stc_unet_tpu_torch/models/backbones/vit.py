@@ -15,13 +15,14 @@ default, ``align_corners=False``) whenever the token grid is not
 ``img_size / patch_size`` a side. Pre-LN blocks: attention in plain
 matmuls and a softmax (the JAX module's einsums, no kernel), exact-GELU
 FFN, drop-path rates rising linearly from 0. The features of
-``out_indices`` (negative ones count from the end) come back NCHW, with
-the cls token beside each as a tuple under ``output_cls_token``.
+``out_indices`` (an int or a sequence; negative ones count from the end;
+mmseg's default -1, the last layer, after ``final_norm``) come back NCHW,
+with the cls token beside each as a tuple under ``output_cls_token``.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -122,7 +123,7 @@ class TransformerEncoderLayer(nn.Module):
 class VisionTransformer(nn.Module):
     """ViT backbone in mmseg's vocabulary (JAX ``vit.py:72``); returns
     the NCHW features of ``out_indices``, whose widths ``out_channels``
-    lists.
+    lists (one a layer index the layers reach).
 
     As in JAX: ``img_size`` (an int or a square tuple) fixes the position
     grid, ``drop_rate`` drops after the position embedding, on the
@@ -134,13 +135,15 @@ class VisionTransformer(nn.Module):
     2, ``patch_pad`` other than ``'corner'``, an ``act_cfg`` other than
     GELU, a ``norm_cfg`` other than LN, a non-square ``img_size``. A
     ``pretrained`` path or a ``Pretrained`` ``init_cfg`` raises too (item
-    20)."""
+    20). Unlike JAX, ``out_indices`` defaults to mmseg's -1, the last
+    layer: JAX's (9, 14, 19, 23) reads layer 9 of the stock 12-layer
+    Segmenter, whose ``final_norm`` then reaches no output."""
 
     def __init__(self, img_size=224, patch_size: int = 16,
                  in_channels: int = 3, embed_dims: int = 768,
                  num_layers: int = 12, num_heads: int = 12,
                  mlp_ratio: float = 4.0,
-                 out_indices: Sequence[int] = (9, 14, 19, 23),
+                 out_indices: Union[int, Sequence[int]] = -1,
                  qkv_bias: bool = True, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  with_cls_token: bool = True, output_cls_token: bool = False,
@@ -174,8 +177,7 @@ class VisionTransformer(nn.Module):
                                       init_cfg.get('type') == 'Pretrained'):
             raise NotImplementedError(f'a pretrained backbone {_ITEM_20}')
         if isinstance(out_indices, int):
-            raise NotImplementedError(
-                'an int out_indices: the JAX module iterates it')
+            out_indices = (out_indices,)
         ignored = dict(patch_norm=patch_norm, pre_norm=pre_norm,
                        num_fcs=num_fcs != 2, patch_pad=patch_pad != 'corner',
                        act_cfg=(act_cfg or {}).get('type', 'GELU') != 'GELU',
@@ -211,7 +213,8 @@ class VisionTransformer(nn.Module):
         if final_norm:
             self.ln1 = LayerNorm(embed_dims, eps=eps)
             self.ln1.paramwise_name = 'norm1_final'
-        self.out_channels = [embed_dims] * len(self.out_indices)
+        self.out_channels = [embed_dims] * sum(
+            0 <= i < num_layers for i in self.out_indices)
 
     def reset_parameters(self, generator: torch.Generator):
         """The cls token and the position embedding at std 0.02."""

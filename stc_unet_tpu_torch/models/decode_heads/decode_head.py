@@ -121,6 +121,16 @@ class BaseDecodeHead(nn.Module):
             idx = idx[0] if len(idx) == 1 else -1
         return feature_channels[idx]
 
+    def _level_widths(self, feature_channels=None) -> list:
+        """The widths of the levels of ``in_index`` that
+        ``multiple_select`` gives: the backbone's (or the neck's) where the
+        segmentor hands them down, else ``in_channels``."""
+        if feature_channels is None:
+            return list(self.in_channels)
+        idx = [self.in_index] if isinstance(self.in_index, int) \
+            else list(self.in_index)
+        return [feature_channels[i] for i in idx]
+
     def _init_cls_seg(self, in_channels: int):
         """Dropout2d + 1x1 conv classifier over ``in_channels`` features."""
         if self.dropout_ratio > 0:

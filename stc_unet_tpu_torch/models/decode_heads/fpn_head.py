@@ -16,22 +16,24 @@ from typing import Optional, Sequence
 import numpy as np
 import torch.nn as nn
 
+from stc_unet_tpu_torch.ops import resize
 from ..bricks import ConvModule
 from ..builder import HEADS
 from .decode_head import BaseDecodeHead
-from .psp_head import resize_nchw
 
 
-class Upsample2x(nn.Module):
-    """A 2x bilinear upsample (mmseg's ``Upsample(scale_factor=2)``)."""
+class Upsample(nn.Module):
+    """A bilinear upsample of an NCHW map by ``scale_factor`` (mmseg's
+    ``Upsample``; the literal factor, as the JAX ``resize`` takes it)."""
 
-    def __init__(self, align_corners: bool):
+    def __init__(self, scale_factor: int, align_corners: bool):
         super().__init__()
-        self.align_corners = align_corners
+        self.scale_factor, self.align_corners = scale_factor, align_corners
 
     def forward(self, x):
-        return resize_nchw(x, (2 * x.shape[2], 2 * x.shape[3]),
-                           self.align_corners)
+        return resize(x.permute(0, 2, 3, 1), scale_factor=self.scale_factor,
+                      mode='bilinear', align_corners=self.align_corners,
+                      warning=False).permute(0, 3, 1, 2)
 
 
 @HEADS.register_module()
@@ -45,10 +47,7 @@ class FPNHead(BaseDecodeHead):
         kwargs.setdefault('in_index', (0, 1, 2, 3))
         kwargs.setdefault('input_transform', 'multiple_select')
         super().__init__(**kwargs)
-        idx = [self.in_index] if isinstance(self.in_index, int) \
-            else list(self.in_index)
-        widths = list(self.in_channels) if feature_channels is None else \
-            [feature_channels[i] for i in idx]
+        widths = self._level_widths(feature_channels)
         assert len(feature_strides) == len(widths)
         self.feature_strides = tuple(feature_strides)
         cfg = dict(conv_cfg=self.conv_cfg, norm_cfg=self.norm_cfg,
@@ -63,7 +62,7 @@ class FPNHead(BaseDecodeHead):
                                          self.channels, self.channels, 3,
                                          padding=1, **cfg))
                 if stride != self.feature_strides[0]:
-                    layers.append(Upsample2x(self.align_corners))
+                    layers.append(Upsample(2, self.align_corners))
             self.scale_heads.append(nn.Sequential(*layers))
         self._init_cls_seg(self.channels)
 

@@ -33,10 +33,7 @@ class UPerHead(BaseDecodeHead):
         kwargs.setdefault('in_index', (0, 1, 2, 3))
         kwargs.setdefault('input_transform', 'multiple_select')
         super().__init__(**kwargs)
-        idx = [self.in_index] if isinstance(self.in_index, int) \
-            else list(self.in_index)
-        widths = list(self.in_channels) if feature_channels is None else \
-            [feature_channels[i] for i in idx]
+        widths = self._level_widths(feature_channels)
         cfg = dict(conv_cfg=self.conv_cfg, norm_cfg=self.norm_cfg,
                    act_cfg=self.act_cfg)
         ch = self.channels

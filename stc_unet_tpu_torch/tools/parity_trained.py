@@ -43,6 +43,7 @@ import json
 import os
 import os.path as osp
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -58,24 +59,34 @@ JAX_RECORD = osp.join(REPO, 'PARITY_KITS_TRAINED.json')
 def build_learnable_kits(root: str, n_train: int, n_test: int, size: int):
     """The JAX tool's fixture (``tools/parity_trained.py:35-58``) with the
     same draws, written by the port's PNG writer: RGB images and 0/1
-    gray labels in ``root``/{train,test}/{images,labels}."""
+    gray labels in ``root``/{train,test}/{images,labels}. The draws run
+    in order here and the files are written by 8 threads (the writer's
+    numpy and zlib leave the interpreter lock)."""
     rng = np.random.RandomState(0)
-    for split, n in (('train', n_train), ('test', n_test)):
-        os.makedirs(f'{root}/{split}/images', exist_ok=True)
-        os.makedirs(f'{root}/{split}/labels', exist_ok=True)
-        for i in range(n):
-            yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
-            cy, cx = rng.randint(size // 4, 3 * size // 4, 2)
-            ry = rng.randint(size // 8, size // 4)
-            rx = rng.randint(size // 8, size // 4)
-            blob = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2) < 1.0
-            img = rng.rand(size, size).astype(np.float32) * 0.35
-            img[blob] += 0.45 + 0.1 * rng.rand()
-            img = np.clip(img + rng.randn(size, size) * 0.05, 0, 1)
-            rgb = (np.stack([img] * 3, -1) * 255).astype(np.uint8)
-            png.write(f'{root}/{split}/images/case_{i:05d}.png', rgb)
-            png.write(f'{root}/{split}/labels/case_{i:05d}.png',
-                      blob.astype(np.uint8))
+    with ThreadPoolExecutor(8) as pool:
+        writes = []
+        for split, n in (('train', n_train), ('test', n_test)):
+            os.makedirs(f'{root}/{split}/images', exist_ok=True)
+            os.makedirs(f'{root}/{split}/labels', exist_ok=True)
+            for i in range(n):
+                yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+                cy, cx = rng.randint(size // 4, 3 * size // 4, 2)
+                ry = rng.randint(size // 8, size // 4)
+                rx = rng.randint(size // 8, size // 4)
+                blob = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2) < 1.0
+                img = rng.rand(size, size).astype(np.float32) * 0.35
+                img[blob] += 0.45 + 0.1 * rng.rand()
+                img = np.clip(img + rng.randn(size, size) * 0.05, 0, 1)
+                rgb = (np.stack([img] * 3, -1) * 255).astype(np.uint8)
+                writes += [
+                    pool.submit(png.write,
+                                f'{root}/{split}/images/case_{i:05d}.png',
+                                rgb),
+                    pool.submit(png.write,
+                                f'{root}/{split}/labels/case_{i:05d}.png',
+                                blob.astype(np.uint8))]
+        for w in writes:
+            w.result()
 
 
 def write_cfg(path: str, data_root: str, epochs: int, batch: int,

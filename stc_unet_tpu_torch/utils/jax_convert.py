@@ -28,8 +28,8 @@ neither jax nor the JAX package: the caller hands in the
   so the result loads with ``strict=True``);
 - the packed ``in_proj_weight``/``in_proj_bias`` of the MHA, the
   ``relative_position_bias_table``, the ViTs' ``cls_token``,
-  ``embedding`` and ``pos_embed`` and a PReLU's ``weight`` kept
-  verbatim;
+  ``embedding`` and ``pos_embed``, the Segmenter head's ``cls_emb`` and a
+  PReLU's ``weight`` kept verbatim;
 - flax names that stand for a sequence index (``stem_0``, ``stages_1``,
   ``blocks_0``, ``layers_0``, ``layers_up_1``, ``layer_blocks_2``) become
   that index (``stem.0``, ``stages.1``, ``blocks.0``, ``layers.0``,
@@ -80,7 +80,16 @@ the ViT's ``patch_embed`` is ``patch_embed.projection``, a layer's
 ``norm1``/``norm2`` are ``ln1``/``ln2``, its ``attn.qkv`` (transposed) is
 ``attn.attn.in_proj_weight`` and ``in_proj_bias``, ``attn.proj`` is
 ``attn.attn.out_proj``, ``fc1``/``fc2`` are ``ffn.layers.0.0`` and
-``ffn.layers.1``, and ``norm1_final`` is ``ln1``.
+``ffn.layers.1``, and ``norm1_final`` is ``ln1``. So do the ViT's heads:
+SETR's ``up_convs_{i}`` and ``up_convs_{i}_{j}`` are ``up_convs.{i}.0``
+and ``up_convs.{i}.{j}`` (each level an ``nn.Sequential`` ending in its
+upsample), the Segmenter head's ``layers_{i}`` take the ViT's names and
+its ``cls_emb`` is kept verbatim, DPT's ``reassemble_blocks``
+``projects_{i}`` (a 1x1 conv brick) is ``projects.{i}.conv``,
+``readout_projects_{i}`` the Linear ``readout_projects.{i}.0`` before its
+GELU, ``resize_layers_{i}`` (bare transposed-conv kernels for 0 and 1:
+flipped) and ``fusion_blocks_{i}`` are ``resize_layers.{i}`` and
+``fusion_blocks.{i}``.
 """
 from __future__ import annotations
 
@@ -151,6 +160,13 @@ _FORK_NAMES = (
     (re.compile(r'\b(layers\.\d+\.attn)\.proj$'), r'\1.attn.out_proj', ''),
     (re.compile(r'\b(layers\.\d+\.attn)\.qkv$'), r'\1.attn', 'in_proj_'),
     (re.compile(r'(^|\.)norm1_final$'), r'\1ln1', ''),
+    (re.compile(r'(^|\.)up_convs_(\d+)_(\d+)\b'), r'\1up_convs.\2.\3', ''),
+    (re.compile(r'(^|\.)up_convs_(\d+)\b'), r'\1up_convs.\2.0', ''),
+    (re.compile(r'(^|\.)projects_(\d+)$'), r'\1projects.\2.conv', ''),
+    (re.compile(r'(^|\.)readout_projects_(\d+)$'),
+     r'\1readout_projects.\2.0', ''),
+    (re.compile(r'(^|\.)(resize_layers|fusion_blocks)_(\d+)\b'),
+     r'\1\2.\3', ''),
 )
 _EXTRA_CONV = re.compile(r'^((?:.*\.)?)extra_convs_(\d+)\b')
 _SCALE_HEAD = re.compile(r'^((?:.*\.)?)scale_heads_(\d+)_(\d+)\b')
@@ -194,7 +210,7 @@ def translate_path(path: Tuple[str, ...], collection: str = 'params'):
         module, name = path[:-1], 'weight'
     elif leaf in ('bias', 'weight', 'in_proj_weight', 'in_proj_bias',
                   'relative_position_bias_table', 'cls_token', 'embedding',
-                  'pos_embed'):
+                  'pos_embed', 'cls_emb'):
         module, name = path[:-1], leaf
     else:
         raise KeyError(f'cannot translate flax path {"/".join(path)}')

@@ -393,7 +393,6 @@ def test_vit_refusals_and_checks():
                     (dict(act_cfg=dict(type='ReLU')), 'act_cfg'),
                     (dict(norm_cfg=dict(type='BN')), 'norm_cfg'),
                     (dict(img_size=(64, 32)), 'img_size'),
-                    (dict(out_indices=-1), 'int out_indices'),
                     (dict(pretrained='vit.pth'), 'pretrained'),
                     (dict(init_cfg=dict(type='Pretrained',
                                         checkpoint='vit.pth')),
@@ -411,3 +410,21 @@ def test_vit_refusals_and_checks():
         VisionTransformer(**dict(VIT, pretrained=3))
     # a square tuple is the JAX module's side
     assert VisionTransformer(**dict(VIT, img_size=(64, 64))).side == 4
+    # an int out_indices is one index: -1 and 11 of 12 layers (and the
+    # default, mmseg's -1) give the last layer's map alone
+    x = torch.from_numpy(rand(1, 64, 64, 3, seed=9)).permute(0, 3, 1, 2)
+    deep = {k: v for k, v in VIT.items() if k != 'out_indices'}
+    deep['num_layers'] = 12
+    mod = VisionTransformer(**dict(deep, out_indices=(0, 11))).eval()
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+        last = mod(x)[1]
+        for kw in (dict(out_indices=-1), dict(out_indices=11), {}):
+            one = VisionTransformer(**dict(deep, **kw)).eval()
+            one.load_state_dict(mod.state_dict())
+            outs = one(x)
+            assert one.out_indices == (11,) and one.out_channels == [16]
+            assert len(outs) == 1
+            torch.testing.assert_close(outs[0], last, rtol=0, atol=0)
